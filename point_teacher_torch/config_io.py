@@ -1,0 +1,61 @@
+"""Config resolution and dotted overrides (the port's counterpart of
+point_teacher_tpu/config_io.py).
+
+The repository's config files import the JAX package, so the port does not
+execute them: it resolves a config path by its file stem to its own config
+function, and applies `--cfg-options` dotted overrides to the result:
+
+  aitodv2_point_teacher_0 -> config_0pct()
+  aitodv2_point_teacher_{30,60,100} -> config_noisy(position=0.3 / 0.6 / 1.0)
+"""
+from __future__ import annotations
+
+import ast
+import os
+from typing import Any, Dict, List
+
+from .train.config import config_0pct, config_noisy
+
+_CONFIGS = {
+    "aitodv2_point_teacher_0": lambda: config_0pct(),
+    "aitodv2_point_teacher_30": lambda: config_noisy(position=0.3),
+    "aitodv2_point_teacher_60": lambda: config_noisy(position=0.6),
+    "aitodv2_point_teacher_100": lambda: config_noisy(position=1.0),
+}
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    stem = os.path.splitext(os.path.basename(path))[0]
+    if stem not in _CONFIGS:
+        raise ValueError(f"no port config for {stem!r}; known: {sorted(_CONFIGS)}")
+    return dict(pt=_CONFIGS[stem]())
+
+
+def _parse_value(s: str):
+    try:
+        return ast.literal_eval(s)
+    except (ValueError, SyntaxError):
+        return s
+
+
+def _set_dotted(obj, keys: List[str], value):
+    key = keys[0]
+    if len(keys) > 1:
+        child = obj[key] if isinstance(obj, dict) else getattr(obj, key)
+        value = _set_dotted(child, keys[1:], value)
+    if isinstance(obj, dict):
+        obj[key] = value
+        return obj
+    if hasattr(obj, "_replace"):  # NamedTuple
+        return obj._replace(**{key: value})
+    setattr(obj, key, value)
+    return obj
+
+
+def apply_overrides(cfg: Dict[str, Any], options: List[str]) -> Dict[str, Any]:
+    for opt in options or []:
+        if "=" not in opt:
+            raise ValueError(f"--cfg-options entries must be key=value, got {opt!r}")
+        key, value = opt.split("=", 1)
+        cfg = _set_dotted(cfg, key.split("."), _parse_value(value))
+    return cfg

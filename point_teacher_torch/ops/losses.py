@@ -1,0 +1,114 @@
+"""Loss functions (counterpart of point_teacher_tpu/ops/losses.py, the members
+that train/dense_losses.py and train/mil.py use)."""
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def one_hot(labels: Tensor, num_classes: int, dtype=torch.float32) -> Tensor:
+    """Like jax.nn.one_hot: out-of-range labels (background = num_classes)
+    give an all-zero row."""
+    classes = torch.arange(num_classes, device=labels.device)
+    return (labels[..., None] == classes).to(dtype)
+
+
+def weight_reduce(loss: Tensor, weight=None, avg_factor=None) -> Tensor:
+    """mmdet-style weighted reduction: the mean, or the sum over `avg_factor`."""
+    if weight is not None:
+        loss = loss * weight
+    return loss.mean() if avg_factor is None else loss.sum() / avg_factor
+
+
+def _bce_with_logits(logits: Tensor, targets: Tensor) -> Tensor:
+    # numerically stable: max(x,0) - x*t + log(1 + exp(-|x|))
+    return logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+
+
+def sigmoid_focal_loss(logits: Tensor, targets_onehot: Tensor, alpha: float = 0.25,
+                       gamma: float = 2.0) -> Tensor:
+    """Element-wise sigmoid focal loss; targets in {0, 1}, same shape as logits."""
+    p = torch.sigmoid(logits)
+    t = targets_onehot
+    ce = _bce_with_logits(logits, t)
+    p_t = p * t + (1 - p) * (1 - t)
+    alpha_t = alpha * t + (1 - alpha) * (1 - t)
+    return ce * alpha_t * torch.pow(1 - p_t, gamma)
+
+
+def focal_loss_from_labels(logits: Tensor, labels: Tensor, num_classes: int, weight=None,
+                           avg_factor=None, alpha: float = 0.25, gamma: float = 2.0) -> Tensor:
+    """Focal loss with integer labels; background = `num_classes`."""
+    onehot = one_hot(labels, num_classes, logits.dtype)
+    return weight_reduce(sigmoid_focal_loss(logits, onehot, alpha, gamma).sum(-1), weight,
+                         avg_factor)
+
+
+def binary_cross_entropy(logits: Tensor, targets: Tensor, weight=None, avg_factor=None) -> Tensor:
+    return weight_reduce(_bce_with_logits(logits, targets), weight, avg_factor)
+
+
+def _diou_elem(pred: Tensor, target: Tensor, eps: float = 1e-7) -> Tensor:
+    """Element-wise DIoU loss (1 - DIoU) on aligned xyxy boxes [..., 4] -> [...]."""
+    lt = torch.maximum(pred[..., :2], target[..., :2])
+    rb = torch.minimum(pred[..., 2:4], target[..., 2:4])
+    wh = (rb - lt).clamp(min=0)
+    overlap = wh[..., 0] * wh[..., 1]
+    ap = (pred[..., 2] - pred[..., 0]) * (pred[..., 3] - pred[..., 1])
+    ag = (target[..., 2] - target[..., 0]) * (target[..., 3] - target[..., 1])
+    ious = overlap / (ap + ag - overlap + eps)
+
+    enc_lt = torch.minimum(pred[..., :2], target[..., :2])
+    enc_rb = torch.maximum(pred[..., 2:4], target[..., 2:4])
+    enc_wh = (enc_rb - enc_lt).clamp(min=0)
+    c2 = enc_wh[..., 0] ** 2 + enc_wh[..., 1] ** 2 + eps
+    rho2 = (((target[..., 0] + target[..., 2]) - (pred[..., 0] + pred[..., 2])) ** 2 / 4
+            + ((target[..., 1] + target[..., 3]) - (pred[..., 1] + pred[..., 3])) ** 2 / 4)
+    return 1 - (ious - rho2 / c2)
+
+
+def diou_loss(pred: Tensor, target: Tensor, weight=None, avg_factor=None,
+              eps: float = 1e-6) -> Tensor:
+    return weight_reduce(_diou_elem(pred, target, eps), weight, avg_factor)
+
+
+def dn_diou_loss(pred: Tensor, target: Tensor, weight=None, avg_factor=None,
+                 hyper: float = 0.2, eps: float = 1e-6, base_valid=None) -> Tensor:
+    """Denoising DIoU: min over a 3x3 bank of corner-perturbed targets, averaged
+    with the base DIoU (a scalar mean over the `base_valid` rows, the
+    reference's default-'mean' quirk — see the JAX docstring)."""
+    base_elem = _diou_elem(pred, target, eps)
+    if base_valid is None:
+        base = base_elem.mean()
+    else:
+        m = base_valid.reshape(base_elem.shape).to(base_elem.dtype)
+        base = (base_elem * m).sum() / m.sum().clamp(min=1.0)
+    a = hyper / 2
+    w = target[..., 2] - target[..., 0]
+    h = target[..., 3] - target[..., 1]
+    shifts = (-1.0, 0.0, 1.0)
+    bank = torch.stack([
+        torch.stack([target[..., 0] - a * w * i, target[..., 1] - a * h * i,
+                     target[..., 2] + a * w * j, target[..., 3] + a * h * j], -1)
+        for i in shifts for j in shifts
+    ])  # [9, ..., 4], (i, j) row-major as the JAX meshgrid(indexing="ij")
+    bank_loss = _diou_elem(pred[None], bank, eps)
+    loss = (base + torch.amin(bank_loss, 0)) / 2  # amin splits tied grads as JAX does
+    return weight_reduce(loss, weight, avg_factor)
+
+
+def gfocal_loss(p: Tensor, q: Tensor, w=1.0, eps: float = 1e-6) -> Tensor:
+    """Bag-level generalised-focal loss, summed over classes: [..., C] -> [...]."""
+    l1 = (p - q) ** 2
+    l2 = q * torch.log(p + eps) + (1 - q) * torch.log(1 - p + eps)
+    return -(l1 * l2 * w).sum(-1)
+
+
+def centerness_target(bbox_targets_ltrb: Tensor) -> Tensor:
+    """FCOS centerness from (l, t, r, b) targets; min clamp 0.01 as in the reference."""
+    lr = bbox_targets_ltrb[..., [0, 2]]
+    tb = bbox_targets_ltrb[..., [1, 3]]
+    c = ((lr.amin(-1).clamp(min=0.01) / lr.amax(-1).clamp(min=1e-12))
+         * (tb.amin(-1).clamp(min=0.01) / tb.amax(-1).clamp(min=1e-12)))
+    return torch.sqrt(c)
