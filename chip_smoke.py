@@ -4,21 +4,36 @@
 
 Phases:
 1. device: the card's name and power limit; TF32 off for the checks;
-2. build: nvcc builds the RoIAlign kernels from point_teacher_torch/csrc/;
-3. K1 check: the forward kernel against the plain PyTorch version at the MIL
-   shapes (f32 and bf16, with and without group-window clamp bounds);
-4. K2 check: the d/dfeat kernel against autograd through the plain version,
-   twice, reporting the run-to-run difference of the atomics;
+2. build: nvcc builds the horizontal and the rotated RoIAlign kernels from
+   point_teacher_torch/csrc/, both sources at once, with -Xptxas -v;
+3. K1 / K2 check: the horizontal forward kernel against the plain PyTorch
+   version at the AI-TOD MIL shapes (with and without group-window clamp
+   bounds), and the d/dfeat kernel against autograd through the plain
+   version, twice (the run-to-run difference of the atomics), each in f32
+   and in bf16;
+4. K3 / K4 check: the same for the rotated kernels at the SODA-A MIL shapes
+   (group windows, per-roi windows of the negatives, the Pallas window, the
+   whole map, and edge rois);
 5. timing: CUDA events, median of 20 runs after warm-up, at the two pool
-   shapes a phase-2 step launches, beside the plain version and the bound;
-6. port check: a tiny phase-2 step on the card (kernels) and on the CPU
-   (plain version) from the same weights and draws must agree;
-7. main path: 3 phase-2 steps at full width (800 px, B=2, ResNet-50 / FPN /
-   PSAGG, 100 GTs, bags of 25, 200 negatives per image, bf16) through the
-   functions the training CLI uses, with the kernels' launch counts.
+   shapes a phase-2 step launches, beside the plain version and the bound
+   (the larger of the bytes over the memory rate and the 4 bilinear
+   multiply-adds per sample and channel over the FP32 rate), for all four
+   kernels;
+6. port check: a tiny HBB and a tiny rotated phase-2 step on the card
+   (kernels) and on the CPU (plain versions) from the same weights and
+   draws must agree;
+7. main paths, each driven with the launch counts set to 0 just before and
+   read just after: 3 HBB phase-2 steps at full width (800 px, B=2,
+   ResNet-50 caffe / FPN / PSAGG, 100 GTs, bags of 25, 200 negatives per
+   image, bf16), then 3 SODA-A rotated phase-2 steps at full width
+   (1200 px, B=2, ResNet-50 pytorch style with trainable BN affine, GN head
+   with the angle branch, 100 GTs, bags of 25, 200 negatives per image,
+   bf16), through the functions the training CLI uses.
 
 Any failure ends the run with a nonzero exit. The last line is the JSON
-contract line; the kernel table is the JSON line before the card line.
+contract line; the line before it is the card's name and power limit, and
+the line before that the kernels JSON line (K1-K4; `max_abs_err` is the f32
+check's), after the run's total seconds.
 """
 from __future__ import annotations
 
@@ -26,6 +41,8 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -33,11 +50,14 @@ import torch
 from point_teacher_torch.config_io import apply_overrides, load_config
 from point_teacher_torch.core.proposals import fine_proposals, negative_proposals
 from point_teacher_torch.ops import roi_align as ra
+from point_teacher_torch.ops import roi_align_rotated as rr
 from point_teacher_torch.tools import train as cli
 from point_teacher_torch.train.steps import make_draws
 
 IMG, FEAT, CH, B, G, NEG = 800, 100, 256, 2, 100, 200
 EXT_RATIOS = (1.0, 1.2, 1.3, 0.8, 0.7)
+RIMG, RFEAT, RWIN = 1200, 150, 16              # SODA-A
+REXT_RATIOS = (1.0, 1.2, 1.3, 0.8, 0.6)
 
 # H100 peaks by part (NVIDIA data sheets): memory bytes/s, FP32 (non-tensor) FLOP/s
 PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12), "SXM": (3.35e12, 67e12)}
@@ -122,115 +142,238 @@ def timed(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+# --------------------------------------------------------------------------
+# rotated RoIAlign (K3 / K4), SODA-A shapes
+# --------------------------------------------------------------------------
+
+def rotated_mil_rois(seed: int, dev):
+    """Reg bags [B, 2500, 5], refined-bag + negative rois [B, 2700, 5] and
+    their clamp bounds, built as the rotated MIL stage builds them: members
+    share their GT's group window, negatives (angle 0) each get a window on
+    their own centre."""
+    from point_teacher_torch.core.proposals import FineProposalCfg
+    from point_teacher_torch.ops.boxes import cxcywh_to_xyxy, xyxy_to_cxcywh
+    r = np.random.RandomState(seed)
+    rb = np.concatenate([r.uniform(12, RIMG - 12, (B, G, 2)), r.uniform(4, 16, (B, G, 2)),
+                         r.uniform(-np.pi / 2, np.pi / 2, (B, G, 1))], -1)
+    rboxes = torch.tensor(rb, dtype=torch.float32, device=dev)
+    hw = (RIMG, RIMG)
+    props, pv = fine_proposals(cxcywh_to_xyxy(rboxes[..., :4]), FineProposalCfg(), hw)
+    ext, _ = fine_proposals(props.reshape(B, G, 4), FineProposalCfg(REXT_RATIOS, None, 4.0), hw)
+    u = ext.shape[2]
+    ang = rboxes[:, :, None, 4:5].expand(B, G, u, 1)
+    reg = torch.cat([xyxy_to_cxcywh(ext), ang], -1).reshape(B, G * u, 5).contiguous()
+    # refined bags: the reg bags moved and resized by a few pixels, as the reg tower does
+    jitter = torch.tensor(np.concatenate([r.uniform(-3, 3, (B, G * u, 4)),
+                                          np.zeros((B, G * u, 1))], -1),
+                          dtype=torch.float32, device=dev)
+    cls = (reg + jitter).contiguous()
+    neg_u = torch.tensor(r.uniform(size=(B, 4, NEG)), dtype=torch.float32, device=dev)
+    neg, _ = negative_proposals(neg_u, props, pv, hw)
+    neg_rb = torch.cat([xyxy_to_cxcywh(neg), torch.zeros_like(neg[..., :1])], -1)
+    wy0, wx0, win = ra.group_window_origins(rboxes[..., :2], (RFEAT, RFEAT), RWIN)
+    member = ra.window_clamp(wy0, wx0, win, (RFEAT, RFEAT))[:, :, None].expand(B, G, u, 4)
+    member = member.reshape(B, G * u, 4).contiguous()
+    cls_neg = torch.cat([cls, neg_rb], 1).contiguous()
+    cls_neg_clamp = torch.cat([member, rr.roi_window_clamp(neg_rb, (RFEAT, RFEAT), RWIN)], 1)
+    return reg, member, cls_neg, cls_neg_clamp.contiguous()
+
+
+def rotated_edge_rois(dev):
+    """Rotated rois across the border, beyond [-1, size], of zero size,
+    larger than a 16-cell window, and at angles +-pi/2, image px."""
+    e = torch.tensor([[-20, 30, 90, 40, 0.3], [1190, 1180, 80, 60, -1.2],
+                      [-150, -120, 40, 30, 0.5], [1400, 300, 50, 50, 0.0],
+                      [500, 400, 0, 40, 0.2], [600, 600, 0, 0, -0.7],
+                      [600, 500, 420, 300, 0.7], [300, 800, 60, 20, np.pi / 2],
+                      [800, 300, 60, 20, -np.pi / 2]], dtype=torch.float32, device=dev)
+    return e[None].expand(B, -1, 5).contiguous()
+
+
+# --------------------------------------------------------------------------
+# one check, one timing and one bound for each kernel family
+# --------------------------------------------------------------------------
+
 def sample_count(rois: torch.Tensor) -> int:
-    """Bilinear samples the kernels take for these rois (49 bins x sn_y x sn_x)."""
+    """Bilinear samples the horizontal kernels take for these rois (49 bins x
+    sn_y x sn_x, the adaptive sampling of each roi)."""
     _, _, bw, bh = ra._roi_geometry(rois)
     sn = torch.ceil(bw).clamp(1, 4) * torch.ceil(bh).clamp(1, 4)
     return int(sn.sum().item()) * 49
 
 
-def bounds(rois, clamp, elt: int, bw: float, f32_rate: float):
-    """(fwd_ms, fwd_by, bwd_ms, bwd_by): the least time for the function's bytes
-    (each input read once, each output written once) and operations (4 taps x
-    one multiply-add per channel per sample, plus the weight products)."""
-    n = rois.shape[0] * rois.shape[1]
-    feat_b = B * FEAT * FEAT * CH * elt
-    pooled_b = n * 49 * CH * elt
-    meta_b = rois.numel() * 4 + (0 if clamp is None else clamp.numel() * 4)
-    flops = sample_count(rois) * CH * 12
-    op_ms = flops / f32_rate * 1e3
-    fwd = max((feat_b + meta_b + pooled_b) / bw * 1e3, op_ms)
-    bwd = max((pooled_b + meta_b + feat_b) / bw * 1e3, op_ms)
-    by = lambda t: "bytes" if t > op_ms else "operations"  # noqa: E731
-    return fwd, by(fwd), bwd, by(bwd)
+@dataclass(frozen=True)
+class Family:
+    """A forward / backward kernel pair: its tags, autograd function (called
+    as fn.apply(feat, rois, *extra(rois), clamp)), plain version, map side,
+    bilinear samples for given rois, and the f32 values per roi the kernels
+    read besides rois and clamps."""
+    tags: tuple
+    fn: object
+    plain: object
+    extra: object
+    feat_hw: int
+    samples: object
+    per_roi_meta: int
+
+    def kernel(self, feat, rois, clamp, extra=None):
+        extra = self.extra(rois) if extra is None else extra
+        return self.fn.apply(feat, rois, *extra, clamp)
 
 
-def phase_kernel_checks(dev):
-    errs = {}
-    torch.manual_seed(0)
+HBB = Family(("K1", "K2"), ra.RoIAlignFunction, ra.roi_align_plain, lambda r: (), FEAT,
+             sample_count, 0)
+ROT = Family(("K3", "K4"), rr.RoIAlignRotatedFunction, rr.roi_align_rotated_plain,
+             lambda r: (rr._cos_sin(r),), RFEAT, lambda r: r.shape[0] * r.shape[1] * 196, 2)
+
+
+def hbb_cases(dev):
     reg, member, cls_neg, cls_neg_clamp = mil_rois(1, dev)
     edge = edge_rois(dev)
     # group windows on the edge rois' own centres: the large ones escape them
     wy0, wx0, win = ra.group_window_origins((edge[..., :2] + edge[..., 2:]) / 2, (FEAT, FEAT), 24)
     edge_clamp = ra.window_clamp(wy0, wx0, win, (FEAT, FEAT)).contiguous()
-    cases = [("reg_bags+clamp", reg, member), ("reg_bags", reg, None),
-             ("cls+neg+clamp", cls_neg, cls_neg_clamp), ("edges", edge, None),
-             ("edges+clamp", edge, edge_clamp)]
-    feat32 = torch.randn(B, FEAT, FEAT, CH, device=dev) * 4
+    return [("reg_bags+clamp", reg, member), ("reg_bags", reg, None),
+            ("cls+neg+clamp", cls_neg, cls_neg_clamp), ("edges", edge, None),
+            ("edges+clamp", edge, edge_clamp)]
+
+
+def rotated_cases(dev):
+    reg, member, cls_neg, cls_neg_clamp = rotated_mil_rois(3, dev)
+    edge = rotated_edge_rois(dev)
+    wy0, wx0, win = ra.group_window_origins(edge[..., :2], (RFEAT, RFEAT), RWIN)
+    edge_group = ra.window_clamp(wy0, wx0, win, (RFEAT, RFEAT)).contiguous()
+    # the whole map on a subset: the plain version's windows are then the map
+    sub = torch.cat([reg[:, :64], edge], 1).contiguous()
+    return [("reg_bags+group", reg, member),
+            ("cls+neg+group/roi", cls_neg, cls_neg_clamp),
+            ("reg_bags+pallas", reg, rr.pallas_window_clamp(reg, (RFEAT, RFEAT)).contiguous()),
+            ("subset+full_map", sub, None),
+            ("edges+roi_window", edge, rr.roi_window_clamp(edge, (RFEAT, RFEAT), RWIN)),
+            ("edges+group", edge, edge_group)]
+
+
+def bounds(fam: Family, rois, clamp, elt: int, bw: float, f32_rate: float):
+    """(bytes_ms, ops_ms) of one launch, forward and backward alike: the bytes
+    the function must move (the map read once and the pooled values written
+    once, or dout read once and d/dfeat written once; rois, clamps and the
+    per-roi extras read once) over the memory rate, and its operations, the 4
+    bilinear multiply-adds (8 FLOPs) per sample and channel, over the FP32
+    rate."""
+    n = rois.shape[0] * rois.shape[1]
+    feat_b = B * fam.feat_hw * fam.feat_hw * CH * elt
+    pooled_b = n * 49 * CH * elt
+    meta_b = 4 * (rois.numel() + (0 if clamp is None else clamp.numel()) + n * fam.per_roi_meta)
+    return ((feat_b + pooled_b + meta_b) / bw * 1e3,
+            fam.samples(rois) * CH * 8 / f32_rate * 1e3)
+
+
+def check_family(fam: Family, dev, cases, seed: int):
+    """The forward kernel against the plain version, in f32 (atol 1e-5 x
+    max|feat|) and bf16 (2e-2 x max|feat|), and the backward kernel against
+    autograd through the plain version on the same inputs, in f32 (1e-4 x
+    max|grad|) and bf16 (2e-2 x max|grad|), run twice (the run-to-run
+    difference of the atomics). Returns the f32 errors {"fwd", "bwd"}."""
+    fwd_tag, bwd_tag = fam.tags
+    torch.manual_seed(seed)
+    feat32 = torch.randn(B, fam.feat_hw, fam.feat_hw, CH, device=dev) * 4
     fmax = float(feat32.abs().max())
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for dtype, ftol, gtol in ((torch.float32, 1e-5, 1e-4), (torch.bfloat16, 2e-2, 2e-2)):
         feat = feat32.to(dtype)
+        dt = str(dtype)[6:]
         for name, rois, clamp in cases:
-            got = ra.RoIAlignFunction.apply(feat, rois, clamp)
-            want = ra.roi_align_plain(feat, rois, clamp)
+            got = fam.kernel(feat, rois, clamp)
+            want = fam.plain(feat, rois, clamp)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
-            print(f"K1 {str(dtype)[6:]:8s} {name:16s} max_abs_err={err:.3e} "
-                  f"(atol {tol * fmax:.3e})", flush=True)
-            check(err <= tol * fmax, f"K1 {dtype} {name}: {err} > {tol * fmax}")
+            print(f"{fwd_tag} {dt:8s} {name:18s} max_abs_err={err:.3e} "
+                  f"(atol {ftol * fmax:.3e})", flush=True)
+            check(err <= ftol * fmax, f"{fwd_tag} {dtype} {name}: {err} > {ftol * fmax}")
+            del got, want
+            dout = torch.randn(B, rois.shape[1], 7, 7, CH, device=dev).to(dtype)
+            f = feat.clone().requires_grad_(True)
+            (want,) = torch.autograd.grad(fam.plain(f, rois, clamp), f, dout)
+            runs = [torch.autograd.grad(fam.kernel(f, rois, clamp), f, dout)[0]
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            gerr = float((runs[0].float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            rerun = float((runs[0].float() - runs[1].float()).abs().max())
+            print(f"{bwd_tag} {dt:8s} {name:18s} max_abs_err={gerr:.3e} ({gtol:g} x max|grad| "
+                  f"{gtol * scale:.3e}) run-to-run max diff={rerun:.3e}", flush=True)
+            check(gerr <= gtol * scale, f"{bwd_tag} {dtype} {name}: {gerr} > {gtol * scale}")
+            del want, runs
             if dtype == torch.float32:
-                errs["fwd"] = max(errs.get("fwd", 0.0), err)
-    # K2: d/dfeat against autograd through the plain version (f32)
-    for name, rois, clamp in cases:
-        dout = torch.randn(B, rois.shape[1], 7, 7, CH, device=dev)
-        f = feat32.clone().requires_grad_(True)
-        (want,) = torch.autograd.grad(ra.roi_align_plain(f, rois, clamp), f, dout)
-        runs = []
-        for _ in range(2):
-            f = feat32.clone().requires_grad_(True)
-            (g,) = torch.autograd.grad(ra.RoIAlignFunction.apply(f, rois, clamp), f, dout)
-            runs.append(g)
-        torch.cuda.synchronize()
-        err = float((runs[0] - want).abs().max())
-        scale = float(want.abs().max())
-        rerun = float((runs[0] - runs[1]).abs().max())
-        print(f"K2 float32  {name:16s} max_abs_err={err:.3e} (1e-4 x max|grad| "
-              f"{1e-4 * scale:.3e}) run-to-run max diff={rerun:.3e}", flush=True)
-        check(err <= 1e-4 * scale, f"K2 {name}: {err} > {1e-4 * scale}")
-        errs["bwd"] = max(errs.get("bwd", 0.0), err)
+                errs = {"fwd": max(errs["fwd"], err), "bwd": max(errs["bwd"], gerr)}
     return errs
 
 
-def phase_timing(dev, name):
-    bw, f32_rate = peaks(name)
-    reg, member, cls_neg, cls_neg_clamp = mil_rois(2, dev)
-    feat = (torch.randn(B, FEAT, FEAT, CH, device=dev) * 4).to(torch.bfloat16)
+def time_family(fam: Family, dev, shapes, bw: float, f32_rate: float):
+    """CUDA-event medians of the kernels and of the plain version in bf16 at
+    `shapes` ((name, rois, clamp): the pools a phase-2 step launches), each
+    beside its bound."""
+    feat = (torch.randn(B, fam.feat_hw, fam.feat_hw, CH, device=dev) * 4).to(torch.bfloat16)
     rows = {}
-    for shape, rois, clamp in (("reg_bags", reg, member), ("cls+neg", cls_neg, cls_neg_clamp)):
+    for shape, rois, clamp in shapes:
+        extra = fam.extra(rois)
         dout = torch.randn(B, rois.shape[1], 7, 7, CH, device=dev).to(torch.bfloat16)
         fk = feat.clone().requires_grad_(True)
-        out_k = ra.RoIAlignFunction.apply(fk, rois, clamp)
+        out_k = fam.kernel(fk, rois, clamp, extra)
         fp = feat.clone().requires_grad_(True)
-        out_p = ra.roi_align_plain(fp, rois, clamp)
+        out_p = fam.plain(fp, rois, clamp)
         t = {
-            "fwd_ms": timed(lambda: ra.RoIAlignFunction.apply(feat, rois, clamp)),
-            "fwd_plain_ms": timed(lambda: ra.roi_align_plain(feat, rois, clamp)),
+            "fwd_ms": timed(lambda: fam.kernel(feat, rois, clamp, extra)),
+            "fwd_plain_ms": timed(lambda: fam.plain(feat, rois, clamp)),
             "bwd_ms": timed(lambda: torch.autograd.grad(out_k, fk, dout, retain_graph=True)),
             "bwd_plain_ms": timed(lambda: torch.autograd.grad(out_p, fp, dout,
                                                               retain_graph=True)),
         }
-        fb, fby, bb, bby = bounds(rois, clamp, 2, bw, f32_rate)
-        t.update(fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb, bwd_bound_by=bby,
-                 rois=rois.shape[0] * rois.shape[1], samples=sample_count(rois))
+        del out_p
+        bytes_ms, ops_ms = bounds(fam, rois, clamp, 2, bw, f32_rate)
+        t.update(bytes_ms=bytes_ms, ops_ms=ops_ms, rois=rois.shape[0] * rois.shape[1],
+                 samples=fam.samples(rois))
         rows[shape] = t
-        print(f"timing bf16 {shape:9s} N={rois.shape[1]}/img: "
-              f"fwd kernel_ms={t['fwd_ms']:.4f} plain_ms={t['fwd_plain_ms']:.4f} "
-              f"bound_ms={fb:.4f} ({fby}); bwd kernel_ms={t['bwd_ms']:.4f} "
-              f"plain_ms={t['bwd_plain_ms']:.4f} bound_ms={bb:.4f} ({bby})", flush=True)
+        print(f"timing bf16 {'/'.join(fam.tags)} {shape:9s} N={rois.shape[1]}/img: "
+              f"fwd kernel_ms={t['fwd_ms']:.4f} plain_ms={t['fwd_plain_ms']:.4f}; "
+              f"bwd kernel_ms={t['bwd_ms']:.4f} plain_ms={t['bwd_plain_ms']:.4f}; "
+              f"bound_ms each={max(bytes_ms, ops_ms):.4f} (bytes {bytes_ms:.4f}, "
+              f"operations {ops_ms:.4f})", flush=True)
     return rows
 
 
-def phase_port_check(dev):
+# --------------------------------------------------------------------------
+# steps
+# --------------------------------------------------------------------------
+
+def condition(state) -> None:
+    """The test suites' conditioning of a random init, on student and
+    teacher: the last PSAGG conv x 1e-2 (bag logits out of f32 sigmoid
+    saturation) and, for the rotated head, a regression bias of 1.0 (boxes of
+    ~16 px, rotated IoUs away from 0). Without them last-bit differences of
+    two devices grow to percent level in gfocal and -log(IoU)."""
+    with torch.no_grad():
+        for model in (state.student, state.teacher):
+            conv = model.neck_agg.lateral_convs[4].conv
+            conv.weight.mul_(1e-2)
+            conv.bias.mul_(1e-2)
+            if hasattr(model.bbox_head, "conv_angle"):
+                model.bbox_head.conv_reg.bias.fill_(1.0)
+
+
+def phase_port_check(dev, config: str):
     """One tiny phase-2 step on the card and on the CPU from the same weights
     and draws: the step's metrics must agree (TF32 is off, f32 throughout)."""
-    cfg = apply_overrides(load_config("aitodv2_point_teacher_0.py"),
+    cfg = apply_overrides(load_config(config),
                           ["pt.img_size=64", "pt.max_gt=6", "pt.burn_in_step=-1",
                            "pt.num_training_burninstep2=6"])
-    pt = cfg["pt"]
+    rotated = bool(cfg.get("rotated"))
     results = {}
     for device in (torch.device("cpu"), dev):
-        pt2, state, step_fn = cli.setup(pt, 4, 0, device, dtype=torch.float32)
-        batch = next(cli.synthetic_dataset(4, pt2, 0)(pt2.batch_size))
+        pt2, state, step_fn = cli.setup(cfg, 4, 0, device, dtype=torch.float32)
+        if rotated:
+            condition(state)
+        batch = next(cli.synthetic_dataset(4, pt2, 0, rotated=rotated)(pt2.batch_size))
         draws = make_draws(torch.Generator().manual_seed(5), pt2, pt2.batch_size, device)
         results[device.type] = {k: float(v) for k, v in
                                 step_fn(state, cli.to_batch(batch, device), draws=draws).items()}
@@ -239,31 +382,36 @@ def phase_port_check(dev):
         got = results["cuda"][k]
         rel = abs(got - want) / max(abs(want), 1e-6)
         worst = max(worst, rel)
-        check(np.isfinite(got) and rel <= 1e-3, f"port check {k}: cuda {got} vs cpu {want}")
-    print(f"port check: tiny phase-2 step, cuda (kernels) vs cpu (plain): "
+        check(np.isfinite(got) and rel <= 1e-3, f"port check {config} {k}: cuda {got} vs cpu {want}")
+    print(f"port check {config}: tiny phase-2 step, cuda (kernels) vs cpu (plain): "
           f"{len(results['cpu'])} metrics agree, worst rel diff {worst:.2e}", flush=True)
 
 
-def phase_main_path(dev):
-    cfg = apply_overrides(load_config("configs/point_teacher/aitodv2_point_teacher_0.py"),
-                          ["pt.burn_in_step=-1"])
-    pt, state, step_fn = cli.setup(cfg["pt"], 6, 0, dev)
-    check(pt.img_size == IMG and pt.max_gt == G and pt.batch_size == B, "config drifted")
-    student = state.student
-    named = dict(student.named_parameters())
-    watch = ["backbone.conv1.weight", "backbone.layer1.0.conv2.weight",
-             "backbone.layer3.0.bn1.weight", "backbone.layer3.0.conv2.weight",
-             "bbox_head.conv_cls.weight", "bbox_head.shared_fcs_bag.0.0.weight"]
+def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, trainable):
+    """3 full-width phase-2 steps of `config` through the CLI's setup and
+    step. `kernels` is the op module whose kernels the path must launch
+    (2 forward and 2 backward per step), `others` an op module whose kernels
+    it must not; `frozen` and `unchanged` parameters must not move,
+    `trainable` ones must. Returns the launch counts of the run."""
+    cfg = apply_overrides(load_config(config), ["pt.burn_in_step=-1"])
+    rotated = bool(cfg.get("rotated"))
+    pt, state, step_fn = cli.setup(cfg, 6, 0, dev)
+    img = RIMG if rotated else IMG
+    check(pt.img_size == img and pt.max_gt == G and pt.batch_size == B, "config drifted")
+    named = {**dict(state.student.named_parameters()), **dict(state.student.named_buffers())}
+    watch = frozen + unchanged + trainable
     before = {k: named[k].detach().clone() for k in watch}
     teacher0 = dict(state.teacher.named_parameters())["bbox_head.conv_cls.weight"].detach().clone()
-    batches = cli.synthetic_dataset(6, pt, 0)(pt.batch_size)
+    batches = cli.synthetic_dataset(6, pt, 0, rotated=rotated)(pt.batch_size)
+    arrays = [next(batches) for _ in range(3)]
     torch.cuda.reset_peak_memory_stats()
-    ra.reset_launch_counts()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    others.reset_launch_counts()
     step_ms, per_step = [], []
-    for i in range(3):
-        arrays = next(batches)
-        batch = cli.to_batch(arrays, dev)
-        f0, b0 = ra.launches_fwd, ra.launches_bwd
+    for i, a in enumerate(arrays):
+        batch = cli.to_batch(a, dev)
+        f0, b0 = kernels.launches_fwd, kernels.launches_bwd
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = step_fn(state, batch, phase1=False)
@@ -271,32 +419,63 @@ def phase_main_path(dev):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         m = {k: float(v) for k, v in metrics.items()}
         bad = [k for k, v in m.items() if not np.isfinite(v)]
-        check(not bad, f"step {i + 1}: non-finite metrics {bad}")
-        per_step.append((ra.launches_fwd - f0, ra.launches_bwd - b0))
-        check(per_step[-1] == (2, 2), f"step {i + 1}: launches fwd/bwd {per_step[-1]} != (2, 2)")
+        check(not bad, f"{config} step {i + 1}: non-finite metrics {bad}")
+        per_step.append((kernels.launches_fwd - f0, kernels.launches_bwd - b0))
+        check(per_step[-1] == (2, 2),
+              f"{config} step {i + 1}: launches fwd/bwd {per_step[-1]} != (2, 2)")
         check(bool(state.points_cached[batch.image_ids].all()),
-              f"step {i + 1}: point caches not set")
-        print(f"step {i + 1}: {step_ms[-1]:.1f} ms total_loss={m['total_loss']:.4f} "
+              f"{config} step {i + 1}: point caches not set")
+        print(f"{config} step {i + 1}: {step_ms[-1]:.1f} ms total_loss={m['total_loss']:.4f} "
               f"loss_cls={m['loss_cls']:.4f} loss_bbox={m['loss_bbox']:.4f} "
               f"mil_bags={m['stage0_loss_mil_bags']:.4f} "
               f"coverage={m['stage0_cls_pool_coverage']:.4f} launches={per_step[-1]}",
               flush=True)
-    launches = (ra.launches_fwd, ra.launches_bwd)
+    launches = (kernels.launches_fwd, kernels.launches_bwd)
+    check((others.launches_fwd, others.launches_bwd) == (0, 0),
+          f"{config}: launched the other module's kernels")
     peak = torch.cuda.max_memory_allocated()
     moved = {k: float((named[k].detach() - before[k]).abs().max()) for k in watch}
-    for k in ("backbone.conv1.weight", "backbone.layer1.0.conv2.weight",
-              "backbone.layer3.0.bn1.weight"):
-        check(moved[k] == 0.0, f"frozen parameter {k} changed by {moved[k]}")
-    for k in ("backbone.layer3.0.conv2.weight", "bbox_head.conv_cls.weight",
-              "bbox_head.shared_fcs_bag.0.0.weight"):
-        check(moved[k] > 0.0, f"trainable parameter {k} did not change")
+    for k in frozen + unchanged:
+        check(moved[k] == 0.0, f"{config}: frozen {k} changed by {moved[k]}")
+    for k in trainable:
+        check(moved[k] > 0.0, f"{config}: trainable {k} did not change")
     t_now = dict(state.teacher.named_parameters())["bbox_head.conv_cls.weight"]
-    check(float((t_now - teacher0).abs().max()) > 0.0, "teacher did not move by EMA")
+    check(float((t_now - teacher0).abs().max()) > 0.0, f"{config}: teacher did not move by EMA")
     steady = step_ms[1:]
-    print(f"main path: phase-2 step ms (steps 2, 3) = {steady[0]:.1f}, {steady[1]:.1f}; "
-          f"imgs/s = {B * 1e3 / np.mean(steady):.3f}; peak memory "
-          f"{peak / 2**30:.2f} GiB; launches fwd/bwd = {launches}", flush=True)
+    print(f"main path {config}: phase-2 step ms (steps 2, 3) = {steady[0]:.1f}, "
+          f"{steady[1]:.1f}; imgs/s = {B * 1e3 / np.mean(steady):.3f}; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches fwd/bwd = {launches}; frozen unchanged "
+          f"{len(frozen + unchanged)}, trainable moved {len(trainable)}", flush=True)
     return launches
+
+
+def build_all() -> None:
+    """nvcc for both sources at once (one process each), with -Xptxas -v."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        logs = list(pool.map(lambda mod: mod.build(ptxas_verbose=True), (ra, rr)))
+    print(f"[2/7] build: {time.perf_counter() - t0:.1f} s -> {ra.LIBRARY}, {rr.LIBRARY} "
+          f"(sm_90a)", flush=True)
+    for mod, log in zip((ra, rr), logs):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas {mod.SOURCE.name}:", line.strip(), flush=True)
+
+
+def kernel_rows(launches, errs, rows, src, names):
+    """The kernels-line entries of one family: the main path's launches, the
+    f32 check's max error, and the sums over the timed pool shapes."""
+    bytes_ms = sum(r["bytes_ms"] for r in rows.values())
+    ops_ms = sum(r["ops_ms"] for r in rows.values())
+    return [{
+        "name": kname, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches[idx], "max_abs_err": errs[key],
+        "ms": sum(r[f"{key}_ms"] for r in rows.values()),
+        "plain_ms": sum(r[f"{key}_plain_ms"] for r in rows.values()),
+        "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in rows.values()),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    } for kname, key, idx, replaces in names]
 
 
 def main():
@@ -304,6 +483,7 @@ def main():
         print("FAIL: torch.cuda.is_available() is false: this smoke needs a CUDA card",
               flush=True)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -311,40 +491,55 @@ def main():
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    build_all()
 
-    t0 = time.perf_counter()
-    log = ra.build(ptxas_verbose=True)
-    print(f"[2/7] build: {time.perf_counter() - t0:.1f} s -> {ra.LIBRARY}", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
-
-    print("[3/7, 4/7] kernel checks against the plain version", flush=True)
-    errs = phase_kernel_checks(dev)
+    print("[3/7] K1 / K2 checks against the plain version (AI-TOD shapes)", flush=True)
+    errs = check_family(HBB, dev, hbb_cases(dev), seed=0)
+    print("[4/7] K3 / K4 checks against the plain version (SODA-A shapes)", flush=True)
+    rerrs = check_family(ROT, dev, rotated_cases(dev), seed=1)
+    torch.cuda.empty_cache()
     print("[5/7] kernel timing (bf16, main-path shapes)", flush=True)
-    rows = phase_timing(dev, name)
-    print("[6/7] port check", flush=True)
-    phase_port_check(dev)
-    # the main path runs as in training: the default precision settings
+    bw, f32_rate = peaks(name)
+    reg, member, cls_neg, cls_neg_clamp = mil_rois(2, dev)
+    rows = time_family(HBB, dev, [("reg_bags", reg, member), ("cls+neg", cls_neg, cls_neg_clamp)],
+                       bw, f32_rate)
+    reg, member, cls_neg, cls_neg_clamp = rotated_mil_rois(4, dev)
+    rrows = time_family(ROT, dev, [("reg_bags", reg, member), ("cls+neg", cls_neg, cls_neg_clamp)],
+                        bw, f32_rate)
+    del reg, member, cls_neg, cls_neg_clamp
+    torch.cuda.empty_cache()
+    print("[6/7] port checks", flush=True)
+    phase_port_check(dev, "aitodv2_point_teacher_0.py")
+    phase_port_check(dev, "sodaa_point_teacher_1x.py")
+    # the main paths run as in training: the default precision settings
     torch.backends.cudnn.allow_tf32 = True
-    print("[7/7] main path", flush=True)
-    launches = phase_main_path(dev)
+    print("[7/7] main paths", flush=True)
+    launches = phase_main_path(
+        dev, "configs/point_teacher/aitodv2_point_teacher_0.py", ra, rr,
+        frozen=["backbone.conv1.weight", "backbone.layer1.0.conv2.weight",
+                "backbone.layer3.0.bn1.weight"],
+        unchanged=[],
+        trainable=["backbone.layer3.0.conv2.weight", "bbox_head.conv_cls.weight",
+                   "bbox_head.shared_fcs_bag.0.0.weight"])
+    torch.cuda.empty_cache()
+    rlaunches = phase_main_path(
+        dev, "configs/point_teacher/sodaa_point_teacher_1x.py", rr, ra,
+        frozen=["backbone.conv1.weight", "backbone.bn1.weight",
+                "backbone.layer1.0.conv2.weight", "backbone.layer1.0.bn1.weight"],
+        unchanged=["backbone.layer3.0.bn1.running_mean", "backbone.layer3.0.bn1.running_var"],
+        trainable=["backbone.layer3.0.bn1.weight", "backbone.layer3.0.bn1.bias",
+                   "backbone.layer3.0.conv2.weight", "bbox_head.conv_angle.weight",
+                   "bbox_head.cls_convs.0.gn.weight", "bbox_head.scale_angle.scale",
+                   "bbox_head.shared_fcs_bag.0.0.weight"])
 
-    src = "point_teacher_torch/csrc/roi_align.cu"
-    kernels = []
-    for kname, key, idx, replaces in (
-            ("roi_align_fwd", "fwd", 0, "point_teacher_tpu/ops/roi_align_pallas.py:49"),
-            ("roi_align_bwd", "bwd", 1, "point_teacher_tpu/ops/roi_align_pallas.py:83")):
-        kernels.append({
-            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[idx], "max_abs_err": errs[key],
-            "ms": sum(r[f"{key}_ms"] for r in rows.values()),
-            "plain_ms": sum(r[f"{key}_plain_ms"] for r in rows.values()),
-            "bound_ms": sum(r[f"{key}_bound_ms"] for r in rows.values()),
-            "bound_by": rows["reg_bags"][f"{key}_bound_by"],
-            "library_ms": None,
-        })
-    print("kernels: " + json.dumps({"kernels": kernels}))
+    kernels = kernel_rows(launches, errs, rows, "point_teacher_torch/csrc/roi_align.cu", (
+        ("roi_align_fwd", "fwd", 0, "point_teacher_tpu/ops/roi_align_pallas.py:49"),
+        ("roi_align_bwd", "bwd", 1, "point_teacher_tpu/ops/roi_align_pallas.py:83")))
+    kernels += kernel_rows(rlaunches, rerrs, rrows,
+                           "point_teacher_torch/csrc/roi_align_rotated.cu", (
+        ("roi_align_rotated_fwd", "fwd", 0, "point_teacher_tpu/ops/rroi_pallas.py:79"),
+        ("roi_align_rotated_bwd", "bwd", 1, "point_teacher_tpu/ops/rroi_pallas.py:110")))
+    print(f"smoke total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,10 +3,12 @@ point_teacher_tpu/config_io.py).
 
 The repository's config files import the JAX package, so the port does not
 execute them: it resolves a config path by its file stem to its own config
-function, and applies `--cfg-options` dotted overrides to the result:
+dict, and applies `--cfg-options` dotted overrides to the result:
 
-  aitodv2_point_teacher_0 -> config_0pct()
-  aitodv2_point_teacher_{30,60,100} -> config_noisy(position=0.3 / 0.6 / 1.0)
+  aitodv2_point_teacher_0 -> dict(pt=config_0pct())
+  aitodv2_point_teacher_{30,60,100} -> dict(pt=config_noisy(position=0.3 / 0.6 / 1.0))
+  sodaa_point_teacher_1x -> dict(pt=config_sodaa(), rotated=True,
+                                 model=dict(num_classes=9, backbone_style="pytorch"))
 """
 from __future__ import annotations
 
@@ -14,13 +16,16 @@ import ast
 import os
 from typing import Any, Dict, List
 
-from .train.config import config_0pct, config_noisy
+from .train.config import config_0pct, config_noisy, config_sodaa
 
 _CONFIGS = {
-    "aitodv2_point_teacher_0": lambda: config_0pct(),
-    "aitodv2_point_teacher_30": lambda: config_noisy(position=0.3),
-    "aitodv2_point_teacher_60": lambda: config_noisy(position=0.6),
-    "aitodv2_point_teacher_100": lambda: config_noisy(position=1.0),
+    "aitodv2_point_teacher_0": lambda: dict(pt=config_0pct()),
+    "aitodv2_point_teacher_30": lambda: dict(pt=config_noisy(position=0.3)),
+    "aitodv2_point_teacher_60": lambda: dict(pt=config_noisy(position=0.6)),
+    "aitodv2_point_teacher_100": lambda: dict(pt=config_noisy(position=1.0)),
+    "sodaa_point_teacher_1x": lambda: dict(
+        pt=config_sodaa(), rotated=True,
+        model=dict(num_classes=9, backbone_style="pytorch")),
 }
 
 
@@ -28,7 +33,7 @@ def load_config(path: str) -> Dict[str, Any]:
     stem = os.path.splitext(os.path.basename(path))[0]
     if stem not in _CONFIGS:
         raise ValueError(f"no port config for {stem!r}; known: {sorted(_CONFIGS)}")
-    return dict(pt=_CONFIGS[stem]())
+    return _CONFIGS[stem]()
 
 
 def _parse_value(s: str):

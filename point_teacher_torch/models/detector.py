@@ -27,15 +27,19 @@ class StudentFCOS(nn.Module):
     from `seed` as the flax initialisers draw them."""
 
     def __init__(self, num_classes: int = 8, num_stages: int = 1, frozen_stages: int = -1,
-                 dtype: torch.dtype = torch.bfloat16, seed: int = 0):
+                 dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 backbone_style: str = "caffe"):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
         self.dtype = dtype
-        self.backbone = ResNet(frozen_stages=frozen_stages, generator=g)
+        self.backbone = ResNet(frozen_stages=frozen_stages, generator=g, style=backbone_style)
         self.neck = FPN(out_channels=CHANNELS, generator=g)
         self.neck_agg = PSAGG(5, CHANNELS, generator=g)
-        self.bbox_head = FCOSHead(num_classes, CHANNELS, STRIDE, generator=g)
+        self.bbox_head = self._make_head(num_classes, g)
         mil_head.add_mil_towers(self.bbox_head, num_classes, num_stages, CHANNELS, generator=g)
+
+    def _make_head(self, num_classes: int, generator: torch.Generator) -> nn.Module:
+        return FCOSHead(num_classes, CHANNELS, STRIDE, generator=generator)
 
     def _autocast(self, x: torch.Tensor):
         return torch.autocast(x.device.type, dtype=torch.bfloat16,
@@ -50,7 +54,8 @@ class StudentFCOS(nn.Module):
         return feat.permute(0, 2, 3, 1)
 
     def head(self, feat: torch.Tensor):
-        """NHWC feature -> (cls [B,H,W,K], bbox [B,H,W,4] px, centerness [B,H,W,1]), f32."""
+        """NHWC feature -> the head's maps, NHWC f32: (cls [B,H,W,K], bbox
+        [B,H,W,4] px, centerness [B,H,W,1]) for FCOSHead."""
         with self._autocast(feat):
             outs = self.bbox_head(feat.permute(0, 3, 1, 2))
         return tuple(o.permute(0, 2, 3, 1) for o in outs)

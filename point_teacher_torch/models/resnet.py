@@ -1,9 +1,12 @@
 """ResNet backbone (counterpart of point_teacher_tpu/models/resnet.py), NCHW.
 
-Caffe-style bottlenecks (stride on the first 1x1 conv), FrozenBN as a
+Bottlenecks in caffe style (stride on the first 1x1 conv, the HBB configs)
+or pytorch style (stride on the 3x3 conv, the SODA-A config), FrozenBN as a
 constant affine, and `frozen_stages` as requires_grad=False on the stem
-(>= 0) and layers 1..frozen_stages. Module names follow the reference torch
-keys (conv1, bn1, layer1.0.conv1, layer1.0.downsample.0, ...).
+(>= 0) and layers 1..frozen_stages. The FrozenBN affines of the other stages
+keep their gradients; whether the optimizer trains them is its label rule
+(train/optim.py, `bn_affine_trainable`). Module names follow the reference
+torch keys (conv1, bn1, layer1.0.conv1, layer1.0.downsample.0, ...).
 """
 from __future__ import annotations
 
@@ -40,13 +43,15 @@ class FrozenBN(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, inplanes: int, planes: int, stride: int, generator: torch.Generator):
+    def __init__(self, inplanes: int, planes: int, stride: int, generator: torch.Generator,
+                 style: str = "caffe"):
         super().__init__()
         out_c = planes * self.expansion
-        # caffe style: the stride sits on conv1
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False)
+        # caffe style: the stride sits on conv1; pytorch style: on conv2
+        s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, stride=s1, bias=False)
         self.bn1 = FrozenBN(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=s2, padding=1, bias=False)
         self.bn2 = FrozenBN(planes)
         self.conv3 = nn.Conv2d(planes, out_c, 1, bias=False)
         self.bn3 = FrozenBN(out_c)
@@ -70,8 +75,11 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """ResNet-50; returns the four stage outputs (strides 4, 8, 16, 32)."""
 
-    def __init__(self, frozen_stages: int = -1, generator: torch.Generator | None = None):
+    def __init__(self, frozen_stages: int = -1, generator: torch.Generator | None = None,
+                 style: str = "caffe"):
         super().__init__()
+        if style not in ("caffe", "pytorch"):
+            raise ValueError(f"unknown ResNet style {style!r}")
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBN(64)
         init_conv_(self.conv1, generator)
@@ -80,7 +88,7 @@ class ResNet(nn.Module):
             blocks = []
             for b in range(n_blocks):
                 stride = 2 if (stage > 0 and b == 0) else 1
-                blocks.append(Bottleneck(inplanes, planes, stride, generator))
+                blocks.append(Bottleneck(inplanes, planes, stride, generator, style))
                 inplanes = planes * Bottleneck.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             planes *= 2

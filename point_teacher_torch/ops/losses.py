@@ -1,8 +1,10 @@
 """Loss functions (counterpart of point_teacher_tpu/ops/losses.py, the members
-that train/dense_losses.py and train/mil.py use)."""
+that train/dense_losses.py, train/rdense_losses.py and train/mil.py use)."""
 from __future__ import annotations
 
 import torch
+
+from .rotated import rbox_iou
 
 Tensor = torch.Tensor
 
@@ -96,6 +98,20 @@ def dn_diou_loss(pred: Tensor, target: Tensor, weight=None, avg_factor=None,
     bank_loss = _diou_elem(pred[None], bank, eps)
     loss = (base + torch.amin(bank_loss, 0)) / 2  # amin splits tied grads as JAX does
     return weight_reduce(loss, weight, avg_factor)
+
+
+def rotated_iou_loss(pred5: Tensor, target5: Tensor, weight=None, avg_factor=None,
+                     mode: str = "log", eps: float = 1e-6, loss_weight: float = 1.0) -> Tensor:
+    """RotatedIoULoss on aligned rotated boxes: -log(IoU) (default), 1 - IoU
+    (linear) or 1 - IoU^2 (square), with the polygon-clip rbox_iou."""
+    ious = rbox_iou(pred5, target5, aligned=True).clamp(min=eps)
+    if mode == "linear":
+        loss = 1 - ious
+    elif mode == "square":
+        loss = 1 - ious ** 2
+    else:
+        loss = -torch.log(ious)
+    return loss_weight * weight_reduce(loss, weight, avg_factor)
 
 
 def gfocal_loss(p: Tensor, q: Tensor, w=1.0, eps: float = 1e-6) -> Tensor:

@@ -22,14 +22,11 @@ use into build/point_teacher_torch/ and loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional
 
 import torch
+
+from . import _cuda_build
 
 Tensor = torch.Tensor
 
@@ -38,11 +35,8 @@ ADAPTIVE_SMAX = 4
 SPATIAL_SCALE = 1.0 / 8
 PLAIN_CHUNK = 256  # rois per einsum of the plain version (bounds its intermediate)
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "roi_align.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "point_teacher_torch"
-LIBRARY = BUILD_DIR / "libroi_align.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+SOURCE = _cuda_build.CSRC / "roi_align.cu"
+LIBRARY = _cuda_build.BUILD_DIR / "libroi_align.so"
 
 # Kernel launches since the last reset_launch_counts(); the wrappers add one
 # where they launch a kernel and nowhere else.
@@ -126,33 +120,10 @@ def roi_align_plain(feat: Tensor, rois: Tensor, clamp: Optional[Tensor] = None) 
 # CUDA kernels
 # --------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the RoIAlign CUDA kernels cannot be built")
-
-
 def build(ptxas_verbose: bool = False) -> str:
     """Compile csrc/roi_align.cu into LIBRARY unless it is newer than the
     source. Returns nvcc's output (with -Xptxas -v: registers and spills)."""
-    if (not ptxas_verbose and LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
-           "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
+    return _cuda_build.build(SOURCE, LIBRARY, ptxas_verbose)
 
 
 def _library():

@@ -1,9 +1,11 @@
 """Where a phase-2 step's time goes on the card.
 
-  python -m point_teacher_torch.tools.profile_step
+  python -m point_teacher_torch.tools.profile_step [CONFIG]
 
-Runs the full-width phase-2 step (aitodv2_point_teacher_0, 800 px, B=2,
-bf16, fabricated batches, seeded init) WARMUP times, then STEPS times
+Runs the full-width phase-2 step of CONFIG (default
+configs/point_teacher/aitodv2_point_teacher_0.py: 800 px, B=2; the SODA-A
+config sodaa_point_teacher_1x.py runs the rotated step at 1200 px) in bf16
+on fabricated batches from a seeded init, WARMUP times, then STEPS times
 timed with the host clock around a synchronised step, then STEPS more
 times under torch.profiler. Prints per step: the wall time (unprofiled), the
 device busy time (the union of the kernels' intervals, profiled) and the idle
@@ -12,6 +14,7 @@ the kernels with the most device time. Needs a CUDA card.
 """
 from __future__ import annotations
 
+import sys
 import time
 from collections import defaultdict
 
@@ -37,14 +40,20 @@ def _busy_us(intervals) -> float:
     return total + (0.0 if cur_e is None else cur_e - cur_s)
 
 
-def main():
+DEFAULT_CONFIG = "configs/point_teacher/aitodv2_point_teacher_0.py"
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    config = argv[0] if argv else DEFAULT_CONFIG
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA card")
     dev = torch.device("cuda")
-    cfg = apply_overrides(load_config("aitodv2_point_teacher_0.py"), ["pt.burn_in_step=-1"])
+    cfg = apply_overrides(load_config(config), ["pt.burn_in_step=-1"])
     n_images = 2 * (WARMUP + 2 * STEPS)
-    pt, state, step_fn = cli.setup(cfg["pt"], n_images, 0, dev)
-    batches = [cli.to_batch(a, dev) for a in cli.synthetic_dataset(n_images, pt, 0)(pt.batch_size)]
+    pt, state, step_fn = cli.setup(cfg, n_images, 0, dev)
+    batches = [cli.to_batch(a, dev) for a in
+               cli.synthetic_dataset(n_images, pt, 0, rotated=bool(cfg.get("rotated")))(pt.batch_size)]
     for batch in batches[:WARMUP]:
         step_fn(state, batch)
     torch.cuda.synchronize()
@@ -65,7 +74,8 @@ def main():
     iv = [(e.time_range.start, e.time_range.end) for e in kernels]
     busy_ms = _busy_us(iv) / 1e3
     wall_ms = sum(walls)
-    print(f"card: {torch.cuda.get_device_name(0)}; steps: {n} timed, then {n} profiled")
+    print(f"config: {config}; card: {torch.cuda.get_device_name(0)}; "
+          f"steps: {n} timed, then {n} profiled")
     print(f"wall ms/step (not profiled): {wall_ms / n:.2f} "
           f"(each: {', '.join(f'{w:.1f}' for w in walls)})")
     print(f"device busy ms/step (profiled run): {busy_ms / n:.2f}; "

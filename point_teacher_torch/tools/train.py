@@ -4,10 +4,11 @@
       --max-steps K [--seed S] [--cpu] [--cfg-options pt.burn_in_step=-1 ...]
 
 Runs on the CUDA card unless --cpu is given; asked for CUDA without a card it
-raises. Only phase 2 is ported, so a step with step <= burn_in_step raises
-NotImplementedError: pass pt.burn_in_step=-1. Data comes from fabricated
-batches (--synthetic-data); checkpoints, validation and the dataset loader
-are not ported yet.
+raises. A config with `rotated` (sodaa_point_teacher_1x) trains the rotated
+detector with the rotated step on rotated boxes. Only phase 2 is ported, so
+a step with step <= burn_in_step raises NotImplementedError: pass
+pt.burn_in_step=-1. Data comes from fabricated batches (--synthetic-data);
+checkpoints, validation and the dataset loader are not ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import torch
 
 from ..config_io import apply_overrides, load_config
 from ..models.detector import StudentFCOS
+from ..models.rotated_detector import StudentRotatedFCOS
+from ..train.rsteps import build_rotated_train_step
 from ..train.state import Batch, create_train_state
 from ..train.steps import build_train_step
 
@@ -32,8 +35,9 @@ def resolve_device(cpu: bool) -> torch.device:
     return torch.device("cuda")
 
 
-def synthetic_dataset(n_images, cfg_pt, seed=0):
-    """Fabricated fixed batches (a copy of tools/train.py synthetic_dataset)."""
+def synthetic_dataset(n_images, cfg_pt, seed=0, rotated=False):
+    """Fabricated fixed batches (a copy of tools/train.py synthetic_dataset):
+    xyxy boxes, or (cx, cy, w, h, a) boxes with a in [-pi/2, pi/2) when rotated."""
     s, g = cfg_pt.img_size, cfg_pt.max_gt
 
     def batches(batch_size):
@@ -45,7 +49,11 @@ def synthetic_dataset(n_images, cfg_pt, seed=0):
             ng = rr.randint(1, g + 1, batch_size)
             cxy = rr.uniform(12, s - 12, (batch_size, g, 2))
             wh = rr.uniform(4, 16, (batch_size, g, 2))
-            boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
+            if rotated:
+                ang = rr.uniform(-np.pi / 2, np.pi / 2, (batch_size, g, 1))
+                boxes = np.concatenate([cxy, wh, ang], -1).astype(np.float32)
+            else:
+                boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
             valid = np.arange(g)[None] < ng[:, None]
             yield dict(image=img, gt_boxes=boxes,
                        gt_labels=rr.randint(0, cfg_pt.num_classes, (batch_size, g)),
@@ -64,24 +72,32 @@ def to_batch(arrays: dict, device) -> Batch:
     )
 
 
-def setup(pt, n_images: int, seed: int, device, dtype=None):
-    """Model, train state and step function of a phase-2 run."""
+def setup(cfg: dict, n_images: int, seed: int, device, dtype=None):
+    """Model, train state and step function of a phase-2 run of a config dict
+    of config_io.load_config: StudentFCOS and the HBB step, or, when the
+    config says `rotated`, StudentRotatedFCOS and the rotated step."""
+    pt = cfg["pt"]
+    rotated = bool(cfg.get("rotated"))
     iters_per_epoch = max(n_images // pt.batch_size, 1)
     pt = pt._replace(optim=pt.optim._replace(iters_per_epoch=iters_per_epoch))
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model = StudentFCOS(num_classes=pt.num_classes, num_stages=pt.num_stages,
-                        frozen_stages=pt.optim.frozen_stages, dtype=dtype, seed=seed).to(device)
+    model_cls = StudentRotatedFCOS if rotated else StudentFCOS
+    style = {k: v for k, v in cfg.get("model", {}).items() if k == "backbone_style"}
+    model = model_cls(num_classes=pt.num_classes, num_stages=pt.num_stages,
+                      frozen_stages=pt.optim.frozen_stages, dtype=dtype, seed=seed,
+                      **style).to(device)
     state = create_train_state(model, pt.optim, num_images=n_images, max_gt=pt.max_gt,
                                seed=seed)
-    return pt, state, build_train_step(pt)
+    step_fn = build_rotated_train_step(pt) if rotated else build_train_step(pt)
+    return pt, state, step_fn
 
 
-def train(pt, n_images: int, max_steps: int, seed: int, device):
+def train(cfg: dict, n_images: int, max_steps: int, seed: int, device):
     """Run up to max_steps steps over the fabricated batches, printing one JSON
     line of metrics per step; returns the train state."""
-    pt, state, step_fn = setup(pt, n_images, seed, device)
-    batches = synthetic_dataset(n_images, pt, seed)
+    pt, state, step_fn = setup(cfg, n_images, seed, device)
+    batches = synthetic_dataset(n_images, pt, seed, rotated=bool(cfg.get("rotated")))
     for epoch in range(pt.optim.max_epochs):
         for arrays in batches(pt.batch_size):
             phase1 = state.step <= pt.burn_in_step  # the reference's rule, tools/train.py
@@ -114,7 +130,7 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
     device = resolve_device(args.cpu)
-    state = train(cfg["pt"], args.synthetic_data, args.max_steps, args.seed, device)
+    state = train(cfg, args.synthetic_data, args.max_steps, args.seed, device)
     print(f"training done at step {state.step}")
 
 

@@ -1,8 +1,9 @@
 """Static training configuration (the port's own copy of
 point_teacher_tpu/train/config.py; defaults mirror the AI-TOD-v2 0% config).
 
-Only the fields phase-2 HBB training reads are here; the phase-1 (synthesis,
-num_training_burninstep1), OBB and inference fields come with their slices.
+Only the fields phase-2 training reads are here, HBB and OBB; the phase-1
+(synthesis, num_training_burninstep1, shape_list) and inference fields come
+with their slices.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ class OptimCfg(NamedTuple):
     max_epochs: int = 12
     iters_per_epoch: int = 5000
     frozen_stages: int = 1  # stem + layer1 (+ all FrozenBN regardless)
+    bn_affine_trainable: bool = False  # OBB config: norm requires_grad=True
 
 
 class PointTeacherConfig(NamedTuple):
@@ -50,7 +52,8 @@ class PointTeacherConfig(NamedTuple):
     # default); False pools every roi over the whole map. Both run through
     # the one RoIAlign kernel (clamp bounds).
     mil_pool_grouped: bool = True
-    mil_pool_window: int = 24
+    mil_pool_window: int = 24          # HBB group window (feature cells)
+    mil_pool_window_rotated: int = 16  # rotated group / per-roi window
     fine_proposal_cfg: Tuple[FineProposalCfg, ...] = (
         FineProposalCfg(base_ratios=(1.0,), shake_ratio=None, min_scale=0.0, gen_num_neg=200),
         FineProposalCfg(base_ratios=(1.0,), shake_ratio=None, min_scale=4.0, gen_num_neg=200),
@@ -93,6 +96,28 @@ def _noisy_proposals():
                         min_scale=16.0),
     )
     return fine, ext
+
+
+def config_sodaa(**overrides) -> PointTeacherConfig:
+    """sodaa_fcos_pointteacher_1x.py equivalent: 9 classes, 1200 px patches,
+    burn_in 8000, centre points, top_k 3, trainable BN affine."""
+    fine = FineProposalCfg(base_ratios=(1.0,), shake_ratio=None, min_scale=0.0, gen_num_neg=200)
+    base = dict(
+        num_classes=9,
+        img_size=1200,
+        burn_in_step=8000,
+        position=0.0,
+        top_k=3,
+        fine_proposal_cfg=(fine, fine),
+        fine_proposal_extensive_cfg=(
+            FineProposalCfg(base_ratios=(1.0, 1.2, 1.3, 0.8, 0.6), shake_ratio=None,
+                            min_scale=4.0),
+            FineProposalCfg(base_ratios=(1.0, 1.3, 0.8), shake_ratio=None, min_scale=4.0),
+        ),
+        optim=OptimCfg(bn_affine_trainable=True),
+    )
+    base.update(overrides)
+    return PointTeacherConfig(**base)
 
 
 def config_noisy(position: float, **overrides) -> PointTeacherConfig:

@@ -22,15 +22,23 @@ from torch import nn
 from .config import OptimCfg
 
 
-def param_label(name: str, frozen_stages: int) -> str:
-    """'base' | 'bias' | 'frozen' for a port parameter name (torch keys)."""
+def param_label(name: str, frozen_stages: int, bn_affine_trainable: bool = False) -> str:
+    """'base' | 'bias' | 'frozen' for a port parameter name (torch keys).
+
+    FrozenBN running statistics are always frozen. Their affine (weight,
+    bias) is frozen too, unless `bn_affine_trainable` (the SODA-A config)
+    and the BN sits outside the stem and the frozen stages: then both take
+    the 'base' label, bias included, as the reference's rule gives them."""
     *module, leaf = name.split(".")
     stem = module[:2] in (["backbone", "conv1"], ["backbone", "bn1"])
     in_frozen_stage = stem or any(module[:2] == ["backbone", f"layer{s}"]
                                   for s in range(1, frozen_stages + 1))
     # FrozenBN modules: bn1/bn2/bn3 and downsample.1
     is_bn = bool(module) and (module[-1].startswith("bn") or module[-2:] == ["downsample", "1"])
-    if is_bn or (frozen_stages >= 0 and in_frozen_stage):
+    if is_bn:
+        trains = bn_affine_trainable and leaf in ("weight", "bias") and not in_frozen_stage
+        return "base" if trains else "frozen"
+    if frozen_stages >= 0 and in_frozen_stage:
         return "frozen"
     return "bias" if leaf == "bias" else "base"
 
@@ -53,7 +61,7 @@ class PointTeacherSGD:
         self.groups: Dict[str, List[nn.Parameter]] = {"base": [], "bias": [], "frozen": []}
         self.labels: Dict[str, str] = {}
         for name, p in model.named_parameters():
-            label = param_label(name, cfg.frozen_stages)
+            label = param_label(name, cfg.frozen_stages, cfg.bn_affine_trainable)
             self.labels[name] = label
             self.groups[label].append(p)
         self.params = [p for p in model.parameters()]

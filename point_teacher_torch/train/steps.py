@@ -35,6 +35,7 @@ class Draws(NamedTuple):
     aug_direction: Tensor            # [B] flip direction in {0, 1, 2, 3}
     aug_u: Tensor                    # [B] uniforms in [0.8, 1.2) for the rescale
     neg_u: Tuple[Optional[Tensor], ...]  # per MIL stage [B, 4, gen_num_neg] or None
+    aug_angle: Optional[Tensor] = None   # [B] rotation in whole degrees 1-19 (rotated step)
 
 
 def make_draws(generator: torch.Generator, cfg: PointTeacherConfig, batch_size: int,
@@ -49,6 +50,7 @@ def make_draws(generator: torch.Generator, cfg: PointTeacherConfig, batch_size: 
         aug_direction=torch.randint(0, 4, (b,), generator=g).to(device),
         aug_u=(0.8 + 0.4 * torch.rand((b,), generator=g)).to(device),
         neg_u=tuple(None if u is None else u.to(device) for u in neg),
+        aug_angle=torch.randint(1, 20, (b,), generator=g).float().to(device),
     )
 
 

@@ -2,7 +2,9 @@
 inverse of point_teacher_tpu/utils/torch_port.py, numpy only).
 
 Conv kernels HWIO -> OIHW, Dense [I, O] -> [O, I], FrozenBN scale / bias /
-mean / var -> weight / bias / running_mean / running_var, the FCOS Scale.
+mean / var -> weight / bias / running_mean / running_var, the FCOS Scale; for
+StudentRotatedFCOS also the GroupNorm scale / bias of the head towers
+(cls_gn{i}, reg_gn{i}), conv_angle and scale_angle.
 The first MIL-tower Dense flattens roi features (H, W, C) in flax; the port
 keeps the reference torch order (C, H, W), so its input rows are permuted.
 """
@@ -42,7 +44,7 @@ def _bn(tree) -> Dict[str, np.ndarray]:
 
 
 def _entries(p: Dict[str, Any], num_stages: int) -> Iterator[Tuple[str, Dict[str, np.ndarray]]]:
-    """(port module path, {param name: array}) for every module of StudentFCOS."""
+    """(port module path, {param name: array}) for every module of the detector."""
     bb = p["backbone"]
     yield "backbone.conv1", _conv(bb["stem_conv"])
     yield "backbone.bn1", _bn(bb["stem_bn"])
@@ -71,9 +73,15 @@ def _entries(p: Dict[str, Any], num_stages: int) -> Iterator[Tuple[str, Dict[str
         if name.startswith(("cls_conv", "reg_conv")):
             side, i = name[:3], name[len("cls_conv"):]
             yield f"bbox_head.{side}_convs.{i}.conv", _conv(tree)
+        elif name.startswith(("cls_gn", "reg_gn")):
+            side, i = name[:3], name[len("cls_gn"):]
+            yield f"bbox_head.{side}_convs.{i}.gn", {"weight": np.asarray(tree["scale"]),
+                                                     "bias": np.asarray(tree["bias"])}
         elif name.startswith("conv_"):
             yield f"bbox_head.{name}", _conv(tree)
     yield "bbox_head.scales.0", {"scale": np.asarray(head["scale"])}
+    if "scale_angle" in head:
+        yield "bbox_head.scale_angle", {"scale": np.asarray(head["scale_angle"])}
     mil = p["mil_head"]
     for s in range(num_stages):
         for tower, dst in ((f"reg_tower{s}", "shared_fcs_reg"), (f"bag_tower{s}", "shared_fcs_bag")):
@@ -84,8 +92,9 @@ def _entries(p: Dict[str, Any], num_stages: int) -> Iterator[Tuple[str, Dict[str
 
 
 def port_arrays(params: Dict[str, Any], num_stages: int = 1) -> Dict[str, np.ndarray]:
-    """A flax StudentFCOS tree (`{"params": ...}` or its inner dict, leaves
-    array-like) as {port parameter name: array in the port's layout}."""
+    """A flax StudentFCOS or StudentRotatedFCOS tree (`{"params": ...}` or its
+    inner dict, leaves array-like) as {port parameter name: array in the
+    port's layout}."""
     p = params.get("params", params)
     return {f"{path}.{name}": value
             for path, leaves in _entries(p, num_stages) for name, value in leaves.items()}
@@ -93,8 +102,8 @@ def port_arrays(params: Dict[str, Any], num_stages: int = 1) -> Dict[str, np.nda
 
 @torch.no_grad()
 def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> nn.Module:
-    """Copy a flax StudentFCOS tree into `model` in place. Every port
-    parameter must be filled."""
+    """Copy a flax StudentFCOS / StudentRotatedFCOS tree into `model` in
+    place. Every port parameter must be filled."""
     own = dict(model.named_parameters())
     filled = set()
     for key, value in port_arrays(params, len(model.bbox_head.fc_reg)).items():

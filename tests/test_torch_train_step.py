@@ -103,6 +103,32 @@ def _steady_rng():
     raise AssertionError("no key found")
 
 
+def assert_trees_and_updates_match(r, which):
+    """Every leaf of the updated tree `which` ("params" or "teacher") at rtol
+    1e-3, and its update (the leaf after the step less the leaf before it, in
+    each package) within 2e-2 of the leaf's largest JAX update: a zeroed or
+    wrong update on any leaf fails, though it moves the values by less than
+    their tolerance. f32 rounding of the two values bounds how far an update
+    is known: 2 units in the last place of the leaf's largest value (the EMA
+    moves a teacher by about that), and 1e-12 for leaves whose gradient is 0
+    up to rounding."""
+    def leaves(tree):
+        return dict(jax.tree_util.tree_leaves_with_path(tree))
+
+    want, got = leaves(r[f"j{which}"]), leaves(r[f"t{which}"])
+    want0, got0 = leaves(r["before"][f"j{which}"]), leaves(r["before"][f"t{which}"])
+    assert want.keys() == got.keys() == want0.keys() == got0.keys()
+    for k in want:
+        name = jax.tree_util.keystr(k)
+        w, g = np.asarray(want[k]), np.asarray(got[k])
+        if not (np.abs(g - w) <= 1e-5 + 1e-3 * np.abs(w)).all():  # assert_allclose's rule, fast
+            np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-5, err_msg=name)
+        dw, dg = w - np.asarray(want0[k]), g - np.asarray(got0[k])
+        tol = 2e-2 * float(np.abs(dw).max()) + 2 * float(np.spacing(np.abs(w).max())) + 1e-12
+        err = float(np.abs(dg - dw).max())
+        assert err <= tol, f"update of {name}: max |port - JAX| {err:.3e} > {tol:.3e}"
+
+
 def _snapshot(module):
     """A copy of the state dict: the converter's numpy arrays would otherwise
     alias the parameters that the next step updates in place."""
@@ -138,6 +164,10 @@ def runs():
     tstate = create_train_state(port, tcfg.optim, NUM_IMAGES, G)
     tstep = build_train_step(tcfg)
 
+    # both packages start from `params`, the teacher a copy of the student
+    start = jax.tree_util.tree_map(np.asarray, params)
+    tstart = load_torch_detector_into(params, _snapshot(tstate.student))
+    before = dict(jparams=start, jteacher=start, tparams=tstart, tteacher=tstart)
     out = []
     for seed in (0, 1):
         b = _batch(seed)
@@ -156,7 +186,9 @@ def runs():
                                             jstate.points_cached)],
             tcache=[x.numpy().copy() for x in (tstate.origin_points, tstate.refined_points,
                                                tstate.points_cached)],
+            before=before,
         ))
+        before = {k: out[-1][k] for k in before}
     return out
 
 
@@ -171,13 +203,7 @@ def test_metrics_match_jax(runs, step):
 @pytest.mark.parametrize("step", [0, 1], ids=["one_step", "two_chained_steps"])
 @pytest.mark.parametrize("which", ["params", "teacher"])
 def test_updated_params_match_jax(runs, step, which):
-    r = runs[step]
-    want = dict(jax.tree_util.tree_leaves_with_path(r[f"j{which}"]))
-    got = dict(jax.tree_util.tree_leaves_with_path(r[f"t{which}"]))
-    assert want.keys() == got.keys()
-    for k in want:
-        np.testing.assert_allclose(np.asarray(got[k]), np.asarray(want[k]), rtol=1e-3,
-                                   atol=1e-5, err_msg=jax.tree_util.keystr(k))
+    assert_trees_and_updates_match(runs[step], which)
 
 
 @pytest.mark.parametrize("step", [0, 1], ids=["one_step", "two_chained_steps"])
