@@ -13,12 +13,17 @@ Phases:
    and in bf16;
 4. K3 / K4 check: the same for the rotated kernels at the SODA-A MIL shapes
    (group windows, per-roi windows of the negatives, the Pallas window, the
-   whole map, and edge rois);
+   whole map, edge rois, a run of 64 coincident bags, far longer than the
+   rois a block of the windowed K4 takes, and bags whose dout is zero);
+   with clamp bounds the backward is the windowed K4, without them (the
+   whole map) the atomic kernel;
 5. timing: CUDA events, median of 20 runs after warm-up, at the two pool
    shapes a phase-2 step launches, beside the plain version and the bound
    (the larger of the bytes over the memory rate and the 4 bilinear
    multiply-adds per sample and channel over the FP32 rate), for all four
-   kernels;
+   kernels; for K4 also the atomic kernel at the same shapes, the zeroing
+   and cast that both backward times include, and the windowed kernel's
+   tile and launch layout;
 6. port check: a tiny HBB and a tiny rotated phase-2 step on the card
    (kernels) and on the CPU (plain versions) from the same weights and
    draws must agree;
@@ -28,7 +33,8 @@ Phases:
    image, bf16), then 3 SODA-A rotated phase-2 steps at full width
    (1200 px, B=2, ResNet-50 pytorch style with trainable BN affine, GN head
    with the angle branch, 100 GTs, bags of 25, 200 negatives per image,
-   bf16), through the functions the training CLI uses.
+   bf16), through the functions the training CLI uses; the SODA-A path must
+   launch the windowed K4 and never the atomic one.
 
 Any failure ends the run with a nonzero exit. The last line is the JSON
 contract line; the line before it is the card's name and power limit, and
@@ -206,8 +212,9 @@ def sample_count(rois: torch.Tensor) -> int:
 class Family:
     """A forward / backward kernel pair: its tags, autograd function (called
     as fn.apply(feat, rois, *extra(rois), clamp)), plain version, map side,
-    bilinear samples for given rois, and the f32 values per roi the kernels
-    read besides rois and clamps."""
+    bilinear samples for given rois, the f32 values per roi the kernels
+    read besides rois and clamps, and whether the backward without clamp
+    bounds is another kernel (the rotated atomic one)."""
     tags: tuple
     fn: object
     plain: object
@@ -215,6 +222,7 @@ class Family:
     feat_hw: int
     samples: object
     per_roi_meta: int
+    atomic_without_clamp: bool = False
 
     def kernel(self, feat, rois, clamp, extra=None):
         extra = self.extra(rois) if extra is None else extra
@@ -224,7 +232,8 @@ class Family:
 HBB = Family(("K1", "K2"), ra.RoIAlignFunction, ra.roi_align_plain, lambda r: (), FEAT,
              sample_count, 0)
 ROT = Family(("K3", "K4"), rr.RoIAlignRotatedFunction, rr.roi_align_rotated_plain,
-             lambda r: (rr._cos_sin(r),), RFEAT, lambda r: r.shape[0] * r.shape[1] * 196, 2)
+             lambda r: (rr._cos_sin(r),), RFEAT, lambda r: r.shape[0] * r.shape[1] * 196, 2,
+             atomic_without_clamp=True)
 
 
 def hbb_cases(dev):
@@ -233,9 +242,27 @@ def hbb_cases(dev):
     # group windows on the edge rois' own centres: the large ones escape them
     wy0, wx0, win = ra.group_window_origins((edge[..., :2] + edge[..., 2:]) / 2, (FEAT, FEAT), 24)
     edge_clamp = ra.window_clamp(wy0, wx0, win, (FEAT, FEAT)).contiguous()
-    return [("reg_bags+clamp", reg, member), ("reg_bags", reg, None),
-            ("cls+neg+clamp", cls_neg, cls_neg_clamp), ("edges", edge, None),
-            ("edges+clamp", edge, edge_clamp)]
+    return [("reg_bags+clamp", reg, member, None), ("reg_bags", reg, None, None),
+            ("cls+neg+clamp", cls_neg, cls_neg_clamp, None), ("edges", edge, None, None),
+            ("edges+clamp", edge, edge_clamp, None)]
+
+
+def rotated_long_run(dev):
+    """64 coincident GTs per image, 25 members each, all on one group window
+    (as padded or coincident GTs give): one run of 1600 rois, which the
+    windowed K4 splits across many blocks; in the second image the window
+    sits at the map's corner."""
+    r = np.random.RandomState(7)
+    g, u = 64, 25
+    ctr = np.array([[600.0, 640.0], [30.0, 1180.0]])
+    rb = np.concatenate([ctr[:, None, :] + r.uniform(-30, 30, (B, g * u, 2)),
+                         r.uniform(4, 48, (B, g * u, 2)),
+                         r.uniform(-np.pi / 2, np.pi / 2, (B, g * u, 1))], -1)
+    rois = torch.tensor(rb, dtype=torch.float32, device=dev)
+    wy0, wx0, win = ra.group_window_origins(torch.tensor(ctr[:, None, :], dtype=torch.float32,
+                                                         device=dev), (RFEAT, RFEAT), RWIN)
+    clamp = ra.window_clamp(wy0, wx0, win, (RFEAT, RFEAT)).expand(B, g * u, 4)
+    return rois.contiguous(), clamp.contiguous()
 
 
 def rotated_cases(dev):
@@ -245,12 +272,22 @@ def rotated_cases(dev):
     edge_group = ra.window_clamp(wy0, wx0, win, (RFEAT, RFEAT)).contiguous()
     # the whole map on a subset: the plain version's windows are then the map
     sub = torch.cat([reg[:, :64], edge], 1).contiguous()
-    return [("reg_bags+group", reg, member),
-            ("cls+neg+group/roi", cls_neg, cls_neg_clamp),
-            ("reg_bags+pallas", reg, rr.pallas_window_clamp(reg, (RFEAT, RFEAT)).contiguous()),
-            ("subset+full_map", sub, None),
-            ("edges+roi_window", edge, rr.roi_window_clamp(edge, (RFEAT, RFEAT), RWIN)),
-            ("edges+group", edge, edge_group)]
+    full = ra.full_map_clamp(sub.shape[:2], (RFEAT, RFEAT), dev).contiguous()
+    run, run_clamp = rotated_long_run(dev)
+    # members of every third bag, and one member in five elsewhere, get no gradient
+    bag = torch.arange(reg.shape[1], device=dev) // 25
+    some = torch.tensor(np.random.RandomState(9).uniform(size=reg.shape[:2]) < 0.2, device=dev)
+    zero = (bag % 3 == 0) | some
+    return [("reg_bags+group", reg, member, None),
+            ("cls+neg+group/roi", cls_neg, cls_neg_clamp, None),
+            ("reg_bags+pallas", reg, rr.pallas_window_clamp(reg, (RFEAT, RFEAT)).contiguous(),
+             None),
+            ("subset+full_map", sub, full, None),
+            ("subset+no_clamp", sub, None, None),
+            ("edges+roi_window", edge, rr.roi_window_clamp(edge, (RFEAT, RFEAT), RWIN), None),
+            ("edges+group", edge, edge_group, None),
+            ("long_run+group", run, run_clamp, None),
+            ("reg_bags+zero_dout", reg, member, zero)]
 
 
 def bounds(fam: Family, rois, clamp, elt: int, bw: float, f32_rate: float):
@@ -272,17 +309,20 @@ def check_family(fam: Family, dev, cases, seed: int):
     """The forward kernel against the plain version, in f32 (atol 1e-5 x
     max|feat|) and bf16 (2e-2 x max|feat|), and the backward kernel against
     autograd through the plain version on the same inputs, in f32 (1e-4 x
-    max|grad|) and bf16 (2e-2 x max|grad|), run twice (the run-to-run
-    difference of the atomics). Returns the f32 errors {"fwd", "bwd"}."""
+    max|grad|) and bf16 (2e-2 x max|grad|, autograd in f32 on the bf16
+    values), run twice (the run-to-run difference of the atomics). A case is (name, rois, clamp, zero): dout is
+    0 on the rois where the bool mask `zero` [B, N] is set. Returns the f32
+    errors {"fwd", "bwd", "bwd_atomic"} (the last: the rotated atomic
+    backward, which runs where clamp is None)."""
     fwd_tag, bwd_tag = fam.tags
     torch.manual_seed(seed)
     feat32 = torch.randn(B, fam.feat_hw, fam.feat_hw, CH, device=dev) * 4
     fmax = float(feat32.abs().max())
-    errs = {"fwd": 0.0, "bwd": 0.0}
+    errs = {"fwd": 0.0, "bwd": 0.0, "bwd_atomic": 0.0}
     for dtype, ftol, gtol in ((torch.float32, 1e-5, 1e-4), (torch.bfloat16, 2e-2, 2e-2)):
         feat = feat32.to(dtype)
         dt = str(dtype)[6:]
-        for name, rois, clamp in cases:
+        for name, rois, clamp, zero in cases:
             got = fam.kernel(feat, rois, clamp)
             want = fam.plain(feat, rois, clamp)
             torch.cuda.synchronize()
@@ -292,20 +332,35 @@ def check_family(fam: Family, dev, cases, seed: int):
             check(err <= ftol * fmax, f"{fwd_tag} {dtype} {name}: {err} > {ftol * fmax}")
             del got, want
             dout = torch.randn(B, rois.shape[1], 7, 7, CH, device=dev).to(dtype)
+            if zero is not None:
+                dout = dout.masked_fill(zero[..., None, None, None], 0)
+            bwd_key = "bwd_atomic" if fam.atomic_without_clamp and clamp is None else "bwd"
+            # reference: autograd through the plain version on the same values in
+            # f32, as the kernels sum; autograd on a bf16 leaf sums the rois' window
+            # gradients in bf16, which alone drifts past the tolerance on long runs
+            f32 = feat.detach().to(torch.float32, copy=True).requires_grad_(True)
+            (want,) = torch.autograd.grad(fam.plain(f32, rois, clamp), f32, dout.float())
             f = feat.clone().requires_grad_(True)
-            (want,) = torch.autograd.grad(fam.plain(f, rois, clamp), f, dout)
             runs = [torch.autograd.grad(fam.kernel(f, rois, clamp), f, dout)[0]
                     for _ in range(2)]
+            note = ""
+            if dtype != torch.float32:
+                (plain_bf,) = torch.autograd.grad(fam.plain(f, rois, clamp), f, dout)
+                note = (f"; bf16 autograd through the plain version: "
+                        f"{float((plain_bf.float() - want).abs().max()):.3e}")
+                del plain_bf
             torch.cuda.synchronize()
-            gerr = float((runs[0].float() - want.float()).abs().max())
-            scale = float(want.float().abs().max())
+            gerr = float((runs[0].float() - want).abs().max())
+            scale = float(want.abs().max())
             rerun = float((runs[0].float() - runs[1].float()).abs().max())
-            print(f"{bwd_tag} {dt:8s} {name:18s} max_abs_err={gerr:.3e} ({gtol:g} x max|grad| "
-                  f"{gtol * scale:.3e}) run-to-run max diff={rerun:.3e}", flush=True)
-            check(gerr <= gtol * scale, f"{bwd_tag} {dtype} {name}: {gerr} > {gtol * scale}")
+            tag = bwd_tag + (" atomic" if bwd_key == "bwd_atomic" else "")
+            print(f"{tag} {dt:8s} {name:18s} max_abs_err={gerr:.3e} ({gtol:g} x max|grad| "
+                  f"{gtol * scale:.3e}) run-to-run max diff={rerun:.3e}{note}", flush=True)
+            check(gerr <= gtol * scale, f"{tag} {dtype} {name}: {gerr} > {gtol * scale}")
             del want, runs
             if dtype == torch.float32:
-                errs = {"fwd": max(errs["fwd"], err), "bwd": max(errs["bwd"], gerr)}
+                errs["fwd"] = max(errs["fwd"], err)
+                errs[bwd_key] = max(errs[bwd_key], gerr)
     return errs
 
 
@@ -340,6 +395,33 @@ def time_family(fam: Family, dev, shapes, bw: float, f32_rate: float):
               f"bound_ms each={max(bytes_ms, ops_ms):.4f} (bytes {bytes_ms:.4f}, "
               f"operations {ops_ms:.4f})", flush=True)
     return rows
+
+
+def time_rotated_backward(dev, shapes, rows) -> None:
+    """The windowed and the atomic K4 at the main-path shapes, through the
+    same wrapper steps (the f32 zeroing, the kernel and the cast to bf16,
+    which a zeroing plus cast alone times separately) and timed as every
+    kernel is, in turns: windowed, atomic, atomic, windowed. Adds the times
+    to rows, whose `bwd_ms` (through autograd) is the kernels line's."""
+    print(f"K4 windowed layout: {rr.windowed_layout()}", flush=True)
+    for shape, rois, clamp in shapes:
+        cs = rr._cos_sin(rois)
+        dout = torch.randn(B, rois.shape[1], 7, 7, CH, device=dev).to(torch.bfloat16)
+        fshape = (B, RFEAT, RFEAT, CH)
+        t = rows[shape]
+        fns = {k: (lambda f=f: f(dout, rois, cs, clamp, fshape).to(torch.bfloat16))
+               for k, f in (("windowed", rr.bwd_windowed), ("atomic", rr.bwd_atomic))}
+        for key, k in (("win_ms", "windowed"), ("atomic_ms", "atomic"),
+                       ("atomic_ms_2", "atomic"), ("win_ms_2", "windowed")):
+            t[key] = timed(fns[k])
+        t["zero_cast_ms"] = timed(lambda: torch.zeros(fshape, device=dev).to(torch.bfloat16))
+        ratio = (t["atomic_ms"] + t["atomic_ms_2"]) / (t["win_ms"] + t["win_ms_2"])
+        print(f"timing bf16 K4 {shape:9s} N={rois.shape[1]}/img, through the wrapper: "
+              f"windowed ms={t['win_ms']:.4f}, {t['win_ms_2']:.4f}; atomic ms="
+              f"{t['atomic_ms']:.4f}, {t['atomic_ms_2']:.4f}; atomic / windowed = "
+              f"{ratio:.2f}x; each includes zeroing + cast {t['zero_cast_ms']:.4f} ms; "
+              f"through autograd (kernels line) {t['bwd_ms']:.4f} ms; bytes bound "
+              f"{t['bytes_ms']:.4f} ms", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -408,10 +490,13 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     others.reset_launch_counts()
+    # per step: 2 forward and 2 backward launches, none of any other kernel
+    # (the rotated atomic backward)
+    want = {k: 2 if k in ("fwd", "bwd") else 0 for k in kernels.launch_counts()}
     step_ms, per_step = [], []
     for i, a in enumerate(arrays):
         batch = cli.to_batch(a, dev)
-        f0, b0 = kernels.launches_fwd, kernels.launches_bwd
+        counts0 = kernels.launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = step_fn(state, batch, phase1=False)
@@ -420,9 +505,8 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
         m = {k: float(v) for k, v in metrics.items()}
         bad = [k for k, v in m.items() if not np.isfinite(v)]
         check(not bad, f"{config} step {i + 1}: non-finite metrics {bad}")
-        per_step.append((kernels.launches_fwd - f0, kernels.launches_bwd - b0))
-        check(per_step[-1] == (2, 2),
-              f"{config} step {i + 1}: launches fwd/bwd {per_step[-1]} != (2, 2)")
+        per_step.append({k: v - counts0[k] for k, v in kernels.launch_counts().items()})
+        check(per_step[-1] == want, f"{config} step {i + 1}: launches {per_step[-1]} != {want}")
         check(bool(state.points_cached[batch.image_ids].all()),
               f"{config} step {i + 1}: point caches not set")
         print(f"{config} step {i + 1}: {step_ms[-1]:.1f} ms total_loss={m['total_loss']:.4f} "
@@ -430,9 +514,10 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
               f"mil_bags={m['stage0_loss_mil_bags']:.4f} "
               f"coverage={m['stage0_cls_pool_coverage']:.4f} launches={per_step[-1]}",
               flush=True)
-    launches = (kernels.launches_fwd, kernels.launches_bwd)
-    check((others.launches_fwd, others.launches_bwd) == (0, 0),
-          f"{config}: launched the other module's kernels")
+    counts = kernels.launch_counts()
+    launches = (counts["fwd"], counts["bwd"])
+    check(not any(others.launch_counts().values()),
+          f"{config}: launched the other module's kernels {others.launch_counts()}")
     peak = torch.cuda.max_memory_allocated()
     moved = {k: float((named[k].detach() - before[k]).abs().max()) for k in watch}
     for k in frozen + unchanged:
@@ -444,7 +529,7 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
     steady = step_ms[1:]
     print(f"main path {config}: phase-2 step ms (steps 2, 3) = {steady[0]:.1f}, "
           f"{steady[1]:.1f}; imgs/s = {B * 1e3 / np.mean(steady):.3f}; peak memory "
-          f"{peak / 2**30:.2f} GiB; launches fwd/bwd = {launches}; frozen unchanged "
+          f"{peak / 2**30:.2f} GiB; launches {counts}; frozen unchanged "
           f"{len(frozen + unchanged)}, trainable moved {len(trainable)}", flush=True)
     return launches
 
@@ -504,8 +589,10 @@ def main():
     rows = time_family(HBB, dev, [("reg_bags", reg, member), ("cls+neg", cls_neg, cls_neg_clamp)],
                        bw, f32_rate)
     reg, member, cls_neg, cls_neg_clamp = rotated_mil_rois(4, dev)
-    rrows = time_family(ROT, dev, [("reg_bags", reg, member), ("cls+neg", cls_neg, cls_neg_clamp)],
-                        bw, f32_rate)
+    rshapes = [("reg_bags", reg, member), ("cls+neg", cls_neg, cls_neg_clamp)]
+    rrows = time_family(ROT, dev, rshapes, bw, f32_rate)
+    time_rotated_backward(dev, rshapes, rrows)
+    del rshapes
     del reg, member, cls_neg, cls_neg_clamp
     torch.cuda.empty_cache()
     print("[6/7] port checks", flush=True)

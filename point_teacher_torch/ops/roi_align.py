@@ -52,6 +52,10 @@ def reset_launch_counts() -> None:
     launches_bwd = 0
 
 
+def launch_counts() -> dict:
+    return {"fwd": launches_fwd, "bwd": launches_bwd}
+
+
 # --------------------------------------------------------------------------
 # plain PyTorch version
 # --------------------------------------------------------------------------

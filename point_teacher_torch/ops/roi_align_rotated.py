@@ -26,7 +26,10 @@ dtype, so in bf16 the two differ by the rounding of the offsets).
 
 On a CPU tensor `roi_align_rotated` takes the plain version; on a CUDA
 tensor it launches the kernels or raises. The kernels are compiled with nvcc
-at first use into build/point_teacher_torch/ and loaded with ctypes.
+at first use into build/point_teacher_torch/ and loaded with ctypes. The
+backward with clamp bounds runs the windowed kernel, which sums the rois
+that share one window in shared memory; without them (the whole map) it runs
+the atomic kernel.
 """
 from __future__ import annotations
 
@@ -50,17 +53,24 @@ SOURCE = _cuda_build.CSRC / "roi_align_rotated.cu"
 LIBRARY = _cuda_build.BUILD_DIR / "libroi_align_rotated.so"
 
 # Kernel launches since the last reset_launch_counts(); the wrappers add one
-# where they launch a kernel and nowhere else.
+# where they launch a kernel and nowhere else. launches_bwd counts the
+# windowed backward, launches_bwd_atomic the atomic one.
 launches_fwd = 0
 launches_bwd = 0
+launches_bwd_atomic = 0
 
 _lib = None
 
 
 def reset_launch_counts() -> None:
-    global launches_fwd, launches_bwd
+    global launches_fwd, launches_bwd, launches_bwd_atomic
     launches_fwd = 0
     launches_bwd = 0
+    launches_bwd_atomic = 0
+
+
+def launch_counts() -> dict:
+    return {"fwd": launches_fwd, "bwd": launches_bwd, "bwd_atomic": launches_bwd_atomic}
 
 
 # --------------------------------------------------------------------------
@@ -189,10 +199,13 @@ def _library():
     if _lib is None:
         build()
         lib = ctypes.CDLL(str(LIBRARY))
-        args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-        for fn in (lib.pt_roi_align_rotated_fwd, lib.pt_roi_align_rotated_bwd):
-            fn.argtypes = args
+        tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        for fn in (lib.pt_roi_align_rotated_fwd, lib.pt_roi_align_rotated_bwd,
+                   lib.pt_roi_align_rotated_bwd_windowed):
+            fn.argtypes = [ctypes.c_void_p] * 5 + tail
             fn.restype = ctypes.c_int
+        lib.pt_roi_align_rotated_bwd_windowed_info.argtypes = [ctypes.c_void_p]
+        lib.pt_roi_align_rotated_bwd_windowed_info.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -200,16 +213,54 @@ def _library():
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launch(fn_name: str, src: Tensor, rrois: Tensor, cos_sin: Tensor,
-            clamp: Optional[Tensor], dst: Tensor, b: int, h: int, w: int, c: int,
-            n: int) -> None:
+def _launch(fn_name: str, tensors, b: int, h: int, w: int, c: int, n: int) -> None:
+    """Launch `fn_name` on the current stream; `tensors` are its pointer
+    arguments (None for a null clamp), the first one giving the dtype."""
+    src = tensors[0]
     fn = getattr(_library(), fn_name)
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    rc = fn(src.data_ptr(), rrois.data_ptr(), cos_sin.data_ptr(),
-            None if clamp is None else clamp.data_ptr(), dst.data_ptr(),
-            _DTYPE_CODE[src.dtype], b, h, w, c, n, SPATIAL_SCALE, stream)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        rc = fn(*[None if t is None else t.data_ptr() for t in tensors],
+                _DTYPE_CODE[src.dtype], b, h, w, c, n, SPATIAL_SCALE, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed with CUDA error {rc}")
+
+
+def windowed_layout() -> dict:
+    """The windowed backward's tile and launch layout on the current card."""
+    info = (ctypes.c_int * 6)()
+    rc = _library().pt_roi_align_rotated_bwd_windowed_info(info)
+    if rc != 0:
+        raise RuntimeError(f"pt_roi_align_rotated_bwd_windowed_info failed with CUDA error {rc}")
+    keys = ("rois_per_block", "tile_cells", "channels_per_block", "threads",
+            "dynamic_smem_bytes", "blocks_per_sm")
+    return dict(zip(keys, info))
+
+
+def bwd_windowed(dout: Tensor, rrois: Tensor, cos_sin: Tensor, clamp: Tensor,
+                 feat_shape) -> Tensor:
+    """d/dfeat [B, H, W, C] f32 of the pool with clamp bounds, by the
+    windowed kernel: dout [B, N, 7, 7, C] contiguous, in feat's dtype."""
+    global launches_bwd
+    b, h, w, c = feat_shape
+    dfeat = torch.zeros((b, h, w, c), device=dout.device, dtype=torch.float32)
+    _launch("pt_roi_align_rotated_bwd_windowed", [dout, rrois, cos_sin, clamp, dfeat],
+            b, h, w, c, rrois.shape[1])
+    launches_bwd += 1
+    return dfeat
+
+
+def bwd_atomic(dout: Tensor, rrois: Tensor, cos_sin: Tensor, clamp: Optional[Tensor],
+               feat_shape) -> Tensor:
+    """d/dfeat [B, H, W, C] f32 by the atomic kernel (one atomicAdd per tap
+    and channel); clamp may be None (the whole map)."""
+    global launches_bwd_atomic
+    b, h, w, c = feat_shape
+    dfeat = torch.zeros((b, h, w, c), device=dout.device, dtype=torch.float32)
+    _launch("pt_roi_align_rotated_bwd", [dout, rrois, cos_sin, clamp, dfeat],
+            b, h, w, c, rrois.shape[1])
+    launches_bwd_atomic += 1
+    return dfeat
 
 
 class RoIAlignRotatedFunction(torch.autograd.Function):
@@ -223,8 +274,7 @@ class RoIAlignRotatedFunction(torch.autograd.Function):
         b, h, w, c = feat.shape
         n = rrois.shape[1]
         out = torch.empty((b, n, OUT_SIZE, OUT_SIZE, c), device=feat.device, dtype=feat.dtype)
-        with torch.cuda.device(feat.device):
-            _launch("pt_roi_align_rotated_fwd", feat, rrois, cos_sin, clamp, out, b, h, w, c, n)
+        _launch("pt_roi_align_rotated_fwd", [feat, rrois, cos_sin, clamp, out], b, h, w, c, n)
         launches_fwd += 1
         ctx.save_for_backward(rrois, cos_sin, clamp)
         ctx.feat_shape = (b, h, w, c)
@@ -233,17 +283,12 @@ class RoIAlignRotatedFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout: Tensor):
-        global launches_bwd
         if not ctx.needs_input_grad[0]:
             return None, None, None, None
         rrois, cos_sin, clamp = ctx.saved_tensors
-        b, h, w, c = ctx.feat_shape
         dout = dout.to(ctx.feat_dtype).contiguous()
-        dfeat = torch.zeros((b, h, w, c), device=dout.device, dtype=torch.float32)
-        with torch.cuda.device(dout.device):
-            _launch("pt_roi_align_rotated_bwd", dout, rrois, cos_sin, clamp, dfeat,
-                    b, h, w, c, rrois.shape[1])
-        launches_bwd += 1
+        bwd = bwd_atomic if clamp is None else bwd_windowed
+        dfeat = bwd(dout, rrois, cos_sin, clamp, ctx.feat_shape)
         return dfeat.to(ctx.feat_dtype), None, None, None
 
 

@@ -46,12 +46,15 @@ def _rrois(r, n=20):
     return np.concatenate([small, np.broadcast_to(edge, (B,) + edge.shape)], 1).astype(np.float32)
 
 
-def _port(feat, rrois, clamp=None):
-    """Port forward and d/dfeat of sum(out * proj)."""
+def _port(feat, rrois, clamp=None, zero=None):
+    """Port forward and d/dfeat of sum(out * proj); proj is 0 on the rois
+    where the bool mask `zero` [B, N] is set."""
     f = torch.tensor(feat, requires_grad=True)
     cl = None if clamp is None else clamp.contiguous()
     out = rr.roi_align_rotated(f, torch.from_numpy(rrois), cl)
     proj = np.random.RandomState(7).randn(*out.shape).astype(np.float32)
+    if zero is not None:
+        proj[zero] = 0.0
     (out * torch.from_numpy(proj)).sum().backward()
     return out.detach().numpy(), f.grad.numpy(), proj
 
@@ -81,22 +84,61 @@ def test_per_roi_window_matches_matmul(window):
     assert np.abs(free - want).max() > 1e-2
 
 
-@pytest.mark.parametrize("window", [16, 6])
-def test_group_window_matches_grouped_from_windows(window):
-    """Members jittered around their group centre; window 6 makes the group
-    window clamp some of them."""
-    r = np.random.RandomState(3)
-    feat = _feat(4)
-    g, u = 5, 6
-    ctr = r.uniform(-20, 8 * W + 20, (B, g, 2)).astype(np.float32)
-    ctr[:, 0] = (5.0, 4.0)                            # window pinned at the map origin
-    members = np.concatenate([ctr[:, :, None, :] + r.uniform(-16, 16, (B, g, u, 2)),
-                              r.uniform(6, 50, (B, g, u, 2)),
-                              r.uniform(-np.pi / 2, np.pi / 2, (B, g, 1, 1)).repeat(u, 2)],
+def _group_members(run):
+    """(feat, centres [B, G, 2], members [B, G, U, 5], zero [B, G * U]) for
+    the group-window test. run None: 5 GTs of 6 members jittered around
+    their centres, the first window pinned at the map origin. Otherwise a
+    run of bags on one window far longer than the rois a block of the
+    windowed CUDA backward takes: 12 GTs per image on one centre
+    ("coincident", or the zero boxes of padded GTs at the map origin) plus 2
+    on windows of their own, 6 members each, so one run of 72 rois; every
+    third member's dout is zero, and for padded GTs so is that of every
+    member of every other bag."""
+    if run is None:
+        r = np.random.RandomState(3)
+        feat = _feat(4)
+        g, u = 5, 6
+        ctr = r.uniform(-20, 8 * W + 20, (B, g, 2)).astype(np.float32)
+        ctr[:, 0] = (5.0, 4.0)                            # window pinned at the map origin
+        members = np.concatenate([ctr[:, :, None, :] + r.uniform(-16, 16, (B, g, u, 2)),
+                                  r.uniform(6, 50, (B, g, u, 2)),
+                                  r.uniform(-np.pi / 2, np.pi / 2, (B, g, 1, 1)).repeat(u, 2)],
+                                 -1).astype(np.float32)
+        return feat, ctr, members, None
+    r = np.random.RandomState(5)
+    g_run, g, u = 12, 14, 6
+    ctr = np.empty((B, g, 2), np.float32)
+    ctr[:, :g_run] = (0.0, 0.0) if run == "padded_zero_boxes" else (150.0, 170.0)
+    ctr[:, g_run:] = ((40.0, 300.0), (330.0, 40.0))    # windows of their own, at two corners
+    size = r.uniform(6, 50, (B, g, u, 2))
+    if run == "padded_zero_boxes":
+        size[:, :g_run] = 0.0
+    members = np.concatenate([ctr[:, :, None, :] + r.uniform(-16, 16, (B, g, u, 2)), size,
+                              r.uniform(-np.pi / 2, np.pi / 2, (B, g, u, 1))],
                              -1).astype(np.float32)
+    zero = np.zeros((B, g, u), bool)
+    zero.reshape(B, -1)[:, ::3] = True
+    if run == "padded_zero_boxes":
+        zero[:, :g_run:2] = True
+    return _feat(6), ctr, members, zero.reshape(B, g * u)
+
+
+@pytest.mark.parametrize("window, run", [(16, None), (6, None), (16, "coincident"),
+                                         (16, "padded_zero_boxes")],
+                         ids=["16", "6", "long_run_coincident", "long_run_padded_zero_boxes"])
+def test_group_window_matches_grouped_from_windows(window, run):
+    """Members jittered around their group centre; window 6 makes the group
+    window clamp some of them. The long runs are the inputs the card's check
+    of the windowed backward finds hardest, pinned here on the plain version
+    it is held to."""
+    feat, ctr, members, zero = _group_members(run)
+    g, u = members.shape[1:3]
     wy0, wx0, win = ra.group_window_origins(torch.from_numpy(ctr), (H, W), window)
     clamp = ra.window_clamp(wy0, wx0, win, (H, W))[:, :, None, :].expand(B, g, u, 4)
-    out, grad, proj = _port(feat, members.reshape(B, g * u, 5), clamp.reshape(B, g * u, 4))
+    clamp = clamp.reshape(B, g * u, 4)
+    if run is not None:     # one run of 72 rois, then one per other GT
+        assert (clamp[:, 1:] != clamp[:, :-1]).any(-1).sum(1).tolist() == [2] * B
+    out, grad, proj = _port(feat, members.reshape(B, g * u, 5), clamp, zero)
 
     def jax_fwd(f):
         outs = []
@@ -168,7 +210,7 @@ def test_dispatcher_takes_plain_path_on_cpu():
     out.sum().backward()
     np.testing.assert_array_equal(out.detach().numpy(),
                                   rr.roi_align_rotated_plain(feat, rrois).detach().numpy())
-    assert (rr.launches_fwd, rr.launches_bwd) == (0, 0)
+    assert rr.launch_counts() == {"fwd": 0, "bwd": 0, "bwd_atomic": 0}
 
 
 def test_clamp_helpers_match_the_reference_origins():
