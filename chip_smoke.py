@@ -7,10 +7,14 @@ Phases:
 2. build: nvcc builds the horizontal and the rotated RoIAlign kernels from
    point_teacher_torch/csrc/, both sources at once, with -Xptxas -v;
 3. K1 / K2 check: the horizontal forward kernel against the plain PyTorch
-   version at the AI-TOD MIL shapes (with and without group-window clamp
-   bounds), and the d/dfeat kernel against autograd through the plain
-   version, twice (the run-to-run difference of the atomics), each in f32
-   and in bf16;
+   version at the AI-TOD MIL shapes (group windows, the whole map, edge
+   rois, a run of 64 coincident bags, far longer than the rois a block of
+   the windowed K2 takes, bags whose dout is zero, the whole map as bounds
+   and 32-cell windows, which exceed the windowed K2's tile), and the
+   d/dfeat kernel against autograd through the plain version, twice (the
+   run-to-run difference of the atomics), each in f32 and in bf16; with
+   clamp bounds the backward is the windowed K2, without them (the whole
+   map) the atomic kernel;
 4. K3 / K4 check: the same for the rotated kernels at the SODA-A MIL shapes
    (group windows, per-roi windows of the negatives, the Pallas window, the
    whole map, edge rois, a run of 64 coincident bags, far longer than the
@@ -21,9 +25,9 @@ Phases:
    shapes a phase-2 step launches, beside the plain version and the bound
    (the larger of the bytes over the memory rate and the 4 bilinear
    multiply-adds per sample and channel over the FP32 rate), for all four
-   kernels; for K4 also the atomic kernel at the same shapes, the zeroing
-   and cast that both backward times include, and the windowed kernel's
-   tile and launch layout;
+   kernels; for K2 and K4 also the atomic kernel at the same shapes, the
+   zeroing and cast that both backward times include, and the windowed
+   kernel's tile and launch layout;
 6. port check: a tiny HBB and a tiny rotated phase-2 step on the card
    (kernels) and on the CPU (plain versions) from the same weights and
    draws must agree;
@@ -33,8 +37,8 @@ Phases:
    image, bf16), then 3 SODA-A rotated phase-2 steps at full width
    (1200 px, B=2, ResNet-50 pytorch style with trainable BN affine, GN head
    with the angle branch, 100 GTs, bags of 25, 200 negatives per image,
-   bf16), through the functions the training CLI uses; the SODA-A path must
-   launch the windowed K4 and never the atomic one.
+   bf16), through the functions the training CLI uses; each path must
+   launch its windowed backward (K2, K4) and never the atomic one.
 
 Any failure ends the run with a nonzero exit. The last line is the JSON
 contract line; the line before it is the card's name and power limit, and
@@ -210,12 +214,14 @@ def sample_count(rois: torch.Tensor) -> int:
 
 @dataclass(frozen=True)
 class Family:
-    """A forward / backward kernel pair: its tags, autograd function (called
-    as fn.apply(feat, rois, *extra(rois), clamp)), plain version, map side,
-    bilinear samples for given rois, the f32 values per roi the kernels
-    read besides rois and clamps, and whether the backward without clamp
-    bounds is another kernel (the rotated atomic one)."""
+    """A forward / backward kernel pair: its tags, op module (with the
+    backward wrappers bwd_windowed and bwd_atomic), autograd function
+    (called as fn.apply(feat, rois, *extra(rois), clamp)), plain version,
+    map side, bilinear samples for given rois, the f32 values per roi the
+    kernels read besides rois and clamps, and whether the backward without
+    clamp bounds is another kernel (the atomic one)."""
     tags: tuple
+    module: object
     fn: object
     plain: object
     extra: object
@@ -229,11 +235,29 @@ class Family:
         return self.fn.apply(feat, rois, *extra, clamp)
 
 
-HBB = Family(("K1", "K2"), ra.RoIAlignFunction, ra.roi_align_plain, lambda r: (), FEAT,
-             sample_count, 0)
-ROT = Family(("K3", "K4"), rr.RoIAlignRotatedFunction, rr.roi_align_rotated_plain,
+HBB = Family(("K1", "K2"), ra, ra.RoIAlignFunction, ra.roi_align_plain, lambda r: (), FEAT,
+             sample_count, 0, atomic_without_clamp=True)
+ROT = Family(("K3", "K4"), rr, rr.RoIAlignRotatedFunction, rr.roi_align_rotated_plain,
              lambda r: (rr._cos_sin(r),), RFEAT, lambda r: r.shape[0] * r.shape[1] * 196, 2,
              atomic_without_clamp=True)
+
+
+def hbb_long_run(dev):
+    """64 coincident GTs per image, 25 members each, all on one 24-cell group
+    window (as padded or coincident GTs give): one run of 1600 rois, which
+    the windowed K2 splits across many blocks; in the second image the
+    window sits at the map's corner."""
+    r = np.random.RandomState(8)
+    g, u = 64, 25
+    ctr = np.array([[400.0, 420.0], [20.0, 790.0]])
+    c = ctr[:, None, :] + r.uniform(-30, 30, (B, g * u, 2))
+    wh = r.uniform(4, 48, (B, g * u, 2))
+    rois = torch.tensor(np.concatenate([c - wh / 2, c + wh / 2], -1), dtype=torch.float32,
+                        device=dev)
+    wy0, wx0, win = ra.group_window_origins(torch.tensor(ctr[:, None, :], dtype=torch.float32,
+                                                         device=dev), (FEAT, FEAT), 24)
+    clamp = ra.window_clamp(wy0, wx0, win, (FEAT, FEAT)).expand(B, g * u, 4)
+    return rois.contiguous(), clamp.contiguous()
 
 
 def hbb_cases(dev):
@@ -242,9 +266,27 @@ def hbb_cases(dev):
     # group windows on the edge rois' own centres: the large ones escape them
     wy0, wx0, win = ra.group_window_origins((edge[..., :2] + edge[..., 2:]) / 2, (FEAT, FEAT), 24)
     edge_clamp = ra.window_clamp(wy0, wx0, win, (FEAT, FEAT)).contiguous()
+    # the whole map as bounds on a subset: the windowed K2's untiled path
+    sub = torch.cat([reg[:, :64], edge], 1).contiguous()
+    full = ra.full_map_clamp(sub.shape[:2], (FEAT, FEAT), dev).contiguous()
+    # 40 bags on 32-cell group windows (1024 cells) around their mean centre,
+    # which exceed the windowed K2's tile
+    bags = reg[:, :1000].contiguous()
+    quad = bags.reshape(B, 40, 25, 4)
+    ctr = ((quad[..., :2] + quad[..., 2:]) / 2).mean(2)
+    wy0, wx0, win = ra.group_window_origins(ctr, (FEAT, FEAT), 32)
+    win32 = ra.window_clamp(wy0, wx0, win, (FEAT, FEAT))[:, :, None].expand(B, 40, 25, 4)
+    run, run_clamp = hbb_long_run(dev)
+    # members of every third bag, and one member in five elsewhere, get no gradient
+    bag = torch.arange(reg.shape[1], device=dev) // 25
+    some = torch.tensor(np.random.RandomState(10).uniform(size=reg.shape[:2]) < 0.2, device=dev)
+    zero = (bag % 3 == 0) | some
     return [("reg_bags+clamp", reg, member, None), ("reg_bags", reg, None, None),
             ("cls+neg+clamp", cls_neg, cls_neg_clamp, None), ("edges", edge, None, None),
-            ("edges+clamp", edge, edge_clamp, None)]
+            ("edges+clamp", edge, edge_clamp, None), ("subset+full_map", sub, full, None),
+            ("bags+window32", bags, win32.reshape(B, 1000, 4).contiguous(), None),
+            ("long_run+clamp", run, run_clamp, None),
+            ("reg_bags+zero_dout", reg, member, zero)]
 
 
 def rotated_long_run(dev):
@@ -397,26 +439,27 @@ def time_family(fam: Family, dev, shapes, bw: float, f32_rate: float):
     return rows
 
 
-def time_rotated_backward(dev, shapes, rows) -> None:
-    """The windowed and the atomic K4 at the main-path shapes, through the
-    same wrapper steps (the f32 zeroing, the kernel and the cast to bf16,
-    which a zeroing plus cast alone times separately) and timed as every
-    kernel is, in turns: windowed, atomic, atomic, windowed. Adds the times
-    to rows, whose `bwd_ms` (through autograd) is the kernels line's."""
-    print(f"K4 windowed layout: {rr.windowed_layout()}", flush=True)
+def time_backward(fam: Family, dev, shapes, rows) -> None:
+    """A family's windowed and atomic backward at the main-path shapes,
+    through the same wrapper steps (the f32 zeroing, the kernel and the cast
+    to bf16, which a zeroing plus cast alone times separately) and timed as
+    every kernel is, in turns: windowed, atomic, atomic, windowed. Adds the
+    times to rows, whose `bwd_ms` (through autograd) is the kernels line's."""
+    mod, tag = fam.module, fam.tags[1]
+    print(f"{tag} windowed layout: {mod.windowed_layout()}", flush=True)
     for shape, rois, clamp in shapes:
-        cs = rr._cos_sin(rois)
+        extra = fam.extra(rois)
         dout = torch.randn(B, rois.shape[1], 7, 7, CH, device=dev).to(torch.bfloat16)
-        fshape = (B, RFEAT, RFEAT, CH)
+        fshape = (B, fam.feat_hw, fam.feat_hw, CH)
         t = rows[shape]
-        fns = {k: (lambda f=f: f(dout, rois, cs, clamp, fshape).to(torch.bfloat16))
-               for k, f in (("windowed", rr.bwd_windowed), ("atomic", rr.bwd_atomic))}
+        fns = {k: (lambda f=f: f(dout, rois, *extra, clamp, fshape).to(torch.bfloat16))
+               for k, f in (("windowed", mod.bwd_windowed), ("atomic", mod.bwd_atomic))}
         for key, k in (("win_ms", "windowed"), ("atomic_ms", "atomic"),
                        ("atomic_ms_2", "atomic"), ("win_ms_2", "windowed")):
             t[key] = timed(fns[k])
         t["zero_cast_ms"] = timed(lambda: torch.zeros(fshape, device=dev).to(torch.bfloat16))
         ratio = (t["atomic_ms"] + t["atomic_ms_2"]) / (t["win_ms"] + t["win_ms_2"])
-        print(f"timing bf16 K4 {shape:9s} N={rois.shape[1]}/img, through the wrapper: "
+        print(f"timing bf16 {tag} {shape:9s} N={rois.shape[1]}/img, through the wrapper: "
               f"windowed ms={t['win_ms']:.4f}, {t['win_ms_2']:.4f}; atomic ms="
               f"{t['atomic_ms']:.4f}, {t['atomic_ms_2']:.4f}; atomic / windowed = "
               f"{ratio:.2f}x; each includes zeroing + cast {t['zero_cast_ms']:.4f} ms; "
@@ -490,8 +533,8 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     others.reset_launch_counts()
-    # per step: 2 forward and 2 backward launches, none of any other kernel
-    # (the rotated atomic backward)
+    # per step: 2 forward and 2 (windowed) backward launches, none of any
+    # other kernel (the atomic backward)
     want = {k: 2 if k in ("fwd", "bwd") else 0 for k in kernels.launch_counts()}
     step_ms, per_step = [], []
     for i, a in enumerate(arrays):
@@ -586,13 +629,14 @@ def main():
     print("[5/7] kernel timing (bf16, main-path shapes)", flush=True)
     bw, f32_rate = peaks(name)
     reg, member, cls_neg, cls_neg_clamp = mil_rois(2, dev)
-    rows = time_family(HBB, dev, [("reg_bags", reg, member), ("cls+neg", cls_neg, cls_neg_clamp)],
-                       bw, f32_rate)
+    shapes = [("reg_bags", reg, member), ("cls+neg", cls_neg, cls_neg_clamp)]
+    rows = time_family(HBB, dev, shapes, bw, f32_rate)
+    time_backward(HBB, dev, shapes, rows)
     reg, member, cls_neg, cls_neg_clamp = rotated_mil_rois(4, dev)
     rshapes = [("reg_bags", reg, member), ("cls+neg", cls_neg, cls_neg_clamp)]
     rrows = time_family(ROT, dev, rshapes, bw, f32_rate)
-    time_rotated_backward(dev, rshapes, rrows)
-    del rshapes
+    time_backward(ROT, dev, rshapes, rrows)
+    del shapes, rshapes
     del reg, member, cls_neg, cls_neg_clamp
     torch.cuda.empty_cache()
     print("[6/7] port checks", flush=True)

@@ -17,7 +17,10 @@ roi_align_matmul.
 
 On a CPU tensor `roi_align` takes the plain version; on a CUDA tensor it
 launches the kernels or raises. The kernels are compiled with nvcc at first
-use into build/point_teacher_torch/ and loaded with ctypes.
+use into build/point_teacher_torch/ and loaded with ctypes. The backward with
+clamp bounds runs the windowed kernel, which sums the rois that share one
+window in shared memory; without them (the whole map) it runs the atomic
+kernel.
 """
 from __future__ import annotations
 
@@ -39,21 +42,24 @@ SOURCE = _cuda_build.CSRC / "roi_align.cu"
 LIBRARY = _cuda_build.BUILD_DIR / "libroi_align.so"
 
 # Kernel launches since the last reset_launch_counts(); the wrappers add one
-# where they launch a kernel and nowhere else.
+# where they launch a kernel and nowhere else. launches_bwd counts the
+# windowed backward, launches_bwd_atomic the atomic one.
 launches_fwd = 0
 launches_bwd = 0
+launches_bwd_atomic = 0
 
 _lib = None
 
 
 def reset_launch_counts() -> None:
-    global launches_fwd, launches_bwd
+    global launches_fwd, launches_bwd, launches_bwd_atomic
     launches_fwd = 0
     launches_bwd = 0
+    launches_bwd_atomic = 0
 
 
 def launch_counts() -> dict:
-    return {"fwd": launches_fwd, "bwd": launches_bwd}
+    return {"fwd": launches_fwd, "bwd": launches_bwd, "bwd_atomic": launches_bwd_atomic}
 
 
 # --------------------------------------------------------------------------
@@ -138,9 +144,11 @@ def _library():
         args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        for fn in (lib.pt_roi_align_fwd, lib.pt_roi_align_bwd):
+        for fn in (lib.pt_roi_align_fwd, lib.pt_roi_align_bwd, lib.pt_roi_align_bwd_windowed):
             fn.argtypes = args
             fn.restype = ctypes.c_int
+        lib.pt_roi_align_bwd_windowed_info.argtypes = [ctypes.c_void_p]
+        lib.pt_roi_align_bwd_windowed_info.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -151,11 +159,48 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def _launch(fn_name: str, src: Tensor, rois: Tensor, clamp: Optional[Tensor], dst: Tensor,
             b: int, h: int, w: int, c: int, n: int) -> None:
     fn = getattr(_library(), fn_name)
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    rc = fn(src.data_ptr(), rois.data_ptr(), None if clamp is None else clamp.data_ptr(),
-            dst.data_ptr(), _DTYPE_CODE[src.dtype], b, h, w, c, n, SPATIAL_SCALE, stream)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        rc = fn(src.data_ptr(), rois.data_ptr(), None if clamp is None else clamp.data_ptr(),
+                dst.data_ptr(), _DTYPE_CODE[src.dtype], b, h, w, c, n, SPATIAL_SCALE, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed with CUDA error {rc}")
+
+
+def windowed_layout() -> dict:
+    """The windowed backward's tile and launch layout on the current card."""
+    info = (ctypes.c_int * 7)()
+    rc = _library().pt_roi_align_bwd_windowed_info(info)
+    if rc != 0:
+        raise RuntimeError(f"pt_roi_align_bwd_windowed_info failed with CUDA error {rc}")
+    keys = ("rois_per_item", "tile_cells", "channels_per_block", "threads",
+            "dynamic_smem_bytes", "blocks_per_sm", "grid_blocks")
+    return dict(zip(keys, info))
+
+
+def bwd_windowed(dout: Tensor, rois: Tensor, clamp: Tensor, feat_shape) -> Tensor:
+    """d/dfeat [B, H, W, C] f32 of the pool with clamp bounds, by the
+    windowed kernel: dout [B, N, 7, 7, C] contiguous, in feat's dtype."""
+    global launches_bwd
+    if rois.data_ptr() % 16 or clamp.data_ptr() % 16:
+        raise ValueError("the windowed backward reads rois and clamp bounds 16 bytes a roi: "
+                         "both must be 16-byte aligned")
+    b, h, w, c = feat_shape
+    dfeat = torch.zeros((b, h, w, c), device=dout.device, dtype=torch.float32)
+    _launch("pt_roi_align_bwd_windowed", dout, rois, clamp, dfeat, b, h, w, c, rois.shape[1])
+    launches_bwd += 1
+    return dfeat
+
+
+def bwd_atomic(dout: Tensor, rois: Tensor, clamp: Optional[Tensor], feat_shape) -> Tensor:
+    """d/dfeat [B, H, W, C] f32 by the atomic kernel (one atomicAdd per tap
+    and channel); clamp may be None (the whole map)."""
+    global launches_bwd_atomic
+    b, h, w, c = feat_shape
+    dfeat = torch.zeros((b, h, w, c), device=dout.device, dtype=torch.float32)
+    _launch("pt_roi_align_bwd", dout, rois, clamp, dfeat, b, h, w, c, rois.shape[1])
+    launches_bwd_atomic += 1
+    return dfeat
 
 
 class RoIAlignFunction(torch.autograd.Function):
@@ -169,8 +214,7 @@ class RoIAlignFunction(torch.autograd.Function):
         b, h, w, c = feat.shape
         n = rois.shape[1]
         out = torch.empty((b, n, OUT_SIZE, OUT_SIZE, c), device=feat.device, dtype=feat.dtype)
-        with torch.cuda.device(feat.device):
-            _launch("pt_roi_align_fwd", feat, rois, clamp, out, b, h, w, c, n)
+        _launch("pt_roi_align_fwd", feat, rois, clamp, out, b, h, w, c, n)
         launches_fwd += 1
         ctx.save_for_backward(rois, clamp)
         ctx.feat_shape = (b, h, w, c)
@@ -179,16 +223,12 @@ class RoIAlignFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout: Tensor):
-        global launches_bwd
         if not ctx.needs_input_grad[0]:
             return None, None, None
         rois, clamp = ctx.saved_tensors
-        b, h, w, c = ctx.feat_shape
         dout = dout.to(ctx.feat_dtype).contiguous()
-        dfeat = torch.zeros((b, h, w, c), device=dout.device, dtype=torch.float32)
-        with torch.cuda.device(dout.device):
-            _launch("pt_roi_align_bwd", dout, rois, clamp, dfeat, b, h, w, c, rois.shape[1])
-        launches_bwd += 1
+        bwd = bwd_atomic if clamp is None else bwd_windowed
+        dfeat = bwd(dout, rois, clamp, ctx.feat_shape)
         return dfeat.to(ctx.feat_dtype), None, None
 
 
