@@ -14,20 +14,24 @@ Phases:
    d/dfeat kernel against autograd through the plain version, twice (the
    run-to-run difference of the atomics), each in f32 and in bf16; with
    clamp bounds the backward is the windowed K2, without them (the whole
-   map) the atomic kernel;
+   map) the atomic kernel; then the cls+neg case on a 64-channel map, and a
+   36-channel map, which the forward's 16-byte vectors of 8 channels cannot
+   take: the dispatcher must raise ValueError;
 4. K3 / K4 check: the same for the rotated kernels at the SODA-A MIL shapes
    (group windows, per-roi windows of the negatives, the Pallas window, the
    whole map, edge rois, a run of 64 coincident bags, far longer than the
    rois a block of the windowed K4 takes, and bags whose dout is zero);
    with clamp bounds the backward is the windowed K4, without them (the
-   whole map) the atomic kernel;
+   whole map) the atomic kernel; C = 64 and C = 36 as for K1;
 5. timing: CUDA events, median of 20 runs after warm-up, at the two pool
    shapes a phase-2 step launches, beside the plain version and the bound
    (the larger of the bytes over the memory rate and the 4 bilinear
    multiply-adds per sample and channel over the FP32 rate), for all four
-   kernels; for K2 and K4 also the atomic kernel at the same shapes, the
-   zeroing and cast that both backward times include, and the windowed
-   kernel's tile and launch layout;
+   kernels; for the forwards also zero_ of a tensor of the pooled output's
+   size (the card's own write of the same bytes) and the forward kernel's
+   layout and resources; for K2 and K4 also the atomic kernel at the same
+   shapes, the zeroing and cast that both backward times include, and the
+   windowed kernel's tile and launch layout;
 6. port check: a tiny HBB and a tiny rotated phase-2 step on the card
    (kernels) and on the CPU (plain versions) from the same weights and
    draws must agree;
@@ -217,13 +221,15 @@ class Family:
     """A forward / backward kernel pair: its tags, op module (with the
     backward wrappers bwd_windowed and bwd_atomic), autograd function
     (called as fn.apply(feat, rois, *extra(rois), clamp)), plain version,
-    map side, bilinear samples for given rois, the f32 values per roi the
-    kernels read besides rois and clamps, and whether the backward without
-    clamp bounds is another kernel (the atomic one)."""
+    the dispatcher the MIL stage calls, map side, bilinear samples for given
+    rois, the f32 values per roi the kernels read besides rois and clamps,
+    and whether the backward without clamp bounds is another kernel (the
+    atomic one)."""
     tags: tuple
     module: object
     fn: object
     plain: object
+    dispatch: object
     extra: object
     feat_hw: int
     samples: object
@@ -235,11 +241,11 @@ class Family:
         return self.fn.apply(feat, rois, *extra, clamp)
 
 
-HBB = Family(("K1", "K2"), ra, ra.RoIAlignFunction, ra.roi_align_plain, lambda r: (), FEAT,
-             sample_count, 0, atomic_without_clamp=True)
+HBB = Family(("K1", "K2"), ra, ra.RoIAlignFunction, ra.roi_align_plain, ra.roi_align,
+             lambda r: (), FEAT, sample_count, 0, atomic_without_clamp=True)
 ROT = Family(("K3", "K4"), rr, rr.RoIAlignRotatedFunction, rr.roi_align_rotated_plain,
-             lambda r: (rr._cos_sin(r),), RFEAT, lambda r: r.shape[0] * r.shape[1] * 196, 2,
-             atomic_without_clamp=True)
+             rr.roi_align_rotated, lambda r: (rr._cos_sin(r),), RFEAT,
+             lambda r: r.shape[0] * r.shape[1] * 196, 2, atomic_without_clamp=True)
 
 
 def hbb_long_run(dev):
@@ -347,18 +353,19 @@ def bounds(fam: Family, rois, clamp, elt: int, bw: float, f32_rate: float):
             fam.samples(rois) * CH * 8 / f32_rate * 1e3)
 
 
-def check_family(fam: Family, dev, cases, seed: int):
+def check_family(fam: Family, dev, cases, seed: int, ch: int = CH):
     """The forward kernel against the plain version, in f32 (atol 1e-5 x
     max|feat|) and bf16 (2e-2 x max|feat|), and the backward kernel against
     autograd through the plain version on the same inputs, in f32 (1e-4 x
     max|grad|) and bf16 (2e-2 x max|grad|, autograd in f32 on the bf16
-    values), run twice (the run-to-run difference of the atomics). A case is (name, rois, clamp, zero): dout is
-    0 on the rois where the bool mask `zero` [B, N] is set. Returns the f32
-    errors {"fwd", "bwd", "bwd_atomic"} (the last: the rotated atomic
-    backward, which runs where clamp is None)."""
+    values), run twice (the run-to-run difference of the atomics), on a map
+    of `ch` channels. A case is (name, rois, clamp, zero): dout is 0 on the
+    rois where the bool mask `zero` [B, N] is set. Returns the f32 errors
+    {"fwd", "bwd", "bwd_atomic"} (the last: the atomic backward, which runs
+    where clamp is None)."""
     fwd_tag, bwd_tag = fam.tags
     torch.manual_seed(seed)
-    feat32 = torch.randn(B, fam.feat_hw, fam.feat_hw, CH, device=dev) * 4
+    feat32 = torch.randn(B, fam.feat_hw, fam.feat_hw, ch, device=dev) * 4
     fmax = float(feat32.abs().max())
     errs = {"fwd": 0.0, "bwd": 0.0, "bwd_atomic": 0.0}
     for dtype, ftol, gtol in ((torch.float32, 1e-5, 1e-4), (torch.bfloat16, 2e-2, 2e-2)):
@@ -369,11 +376,11 @@ def check_family(fam: Family, dev, cases, seed: int):
             want = fam.plain(feat, rois, clamp)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
-            print(f"{fwd_tag} {dt:8s} {name:18s} max_abs_err={err:.3e} "
+            print(f"{fwd_tag} {dt:8s} {name:18s} C={ch} max_abs_err={err:.3e} "
                   f"(atol {ftol * fmax:.3e})", flush=True)
             check(err <= ftol * fmax, f"{fwd_tag} {dtype} {name}: {err} > {ftol * fmax}")
             del got, want
-            dout = torch.randn(B, rois.shape[1], 7, 7, CH, device=dev).to(dtype)
+            dout = torch.randn(B, rois.shape[1], 7, 7, ch, device=dev).to(dtype)
             if zero is not None:
                 dout = dout.masked_fill(zero[..., None, None, None], 0)
             bwd_key = "bwd_atomic" if fam.atomic_without_clamp and clamp is None else "bwd"
@@ -396,7 +403,7 @@ def check_family(fam: Family, dev, cases, seed: int):
             scale = float(want.abs().max())
             rerun = float((runs[0].float() - runs[1].float()).abs().max())
             tag = bwd_tag + (" atomic" if bwd_key == "bwd_atomic" else "")
-            print(f"{tag} {dt:8s} {name:18s} max_abs_err={gerr:.3e} ({gtol:g} x max|grad| "
+            print(f"{tag} {dt:8s} {name:18s} C={ch} max_abs_err={gerr:.3e} ({gtol:g} x max|grad| "
                   f"{gtol * scale:.3e}) run-to-run max diff={rerun:.3e}{note}", flush=True)
             check(gerr <= gtol * scale, f"{tag} {dtype} {name}: {gerr} > {gtol * scale}")
             del want, runs
@@ -406,11 +413,32 @@ def check_family(fam: Family, dev, cases, seed: int):
     return errs
 
 
+def check_channels(fam: Family, dev, case, seed: int):
+    """`case` at C = 64 (check_family's checks), and C = 36, which the
+    forward's 16-byte vectors of 8 channels cannot take: the dispatcher must
+    raise ValueError on the card. Returns check_family's f32 errors."""
+    errs = check_family(fam, dev, [case], seed, ch=64)
+    _, rois, clamp, _ = case
+    feat = torch.zeros(B, fam.feat_hw, fam.feat_hw, 36, device=dev, dtype=torch.bfloat16)
+    try:
+        fam.dispatch(feat, rois, clamp)
+    except ValueError as e:
+        print(f"{fam.tags[0]} C=36 on the card raises ValueError: {e}", flush=True)
+    else:
+        fail(f"{fam.tags[0]}: C=36 on the card did not raise ValueError")
+    return errs
+
+
+def merge_errs(*errs) -> dict:
+    return {k: max(e[k] for e in errs) for k in errs[0]}
+
+
 def time_family(fam: Family, dev, shapes, bw: float, f32_rate: float):
     """CUDA-event medians of the kernels and of the plain version in bf16 at
     `shapes` ((name, rois, clamp): the pools a phase-2 step launches), each
     beside its bound."""
     feat = (torch.randn(B, fam.feat_hw, fam.feat_hw, CH, device=dev) * 4).to(torch.bfloat16)
+    print(f"{fam.tags[0]} forward layout: {fam.module.fwd_layout()}", flush=True)
     rows = {}
     for shape, rois, clamp in shapes:
         extra = fam.extra(rois)
@@ -419,20 +447,23 @@ def time_family(fam: Family, dev, shapes, bw: float, f32_rate: float):
         out_k = fam.kernel(fk, rois, clamp, extra)
         fp = feat.clone().requires_grad_(True)
         out_p = fam.plain(fp, rois, clamp)
+        pooled = torch.empty_like(out_p)
         t = {
             "fwd_ms": timed(lambda: fam.kernel(feat, rois, clamp, extra)),
+            "write_floor_ms": timed(pooled.zero_),
             "fwd_plain_ms": timed(lambda: fam.plain(feat, rois, clamp)),
             "bwd_ms": timed(lambda: torch.autograd.grad(out_k, fk, dout, retain_graph=True)),
             "bwd_plain_ms": timed(lambda: torch.autograd.grad(out_p, fp, dout,
                                                               retain_graph=True)),
         }
-        del out_p
+        del out_p, pooled
         bytes_ms, ops_ms = bounds(fam, rois, clamp, 2, bw, f32_rate)
         t.update(bytes_ms=bytes_ms, ops_ms=ops_ms, rois=rois.shape[0] * rois.shape[1],
                  samples=fam.samples(rois))
         rows[shape] = t
         print(f"timing bf16 {'/'.join(fam.tags)} {shape:9s} N={rois.shape[1]}/img: "
-              f"fwd kernel_ms={t['fwd_ms']:.4f} plain_ms={t['fwd_plain_ms']:.4f}; "
+              f"fwd kernel_ms={t['fwd_ms']:.4f} plain_ms={t['fwd_plain_ms']:.4f} "
+              f"(zero_ of the pooled output: {t['write_floor_ms']:.4f}); "
               f"bwd kernel_ms={t['bwd_ms']:.4f} plain_ms={t['bwd_plain_ms']:.4f}; "
               f"bound_ms each={max(bytes_ms, ops_ms):.4f} (bytes {bytes_ms:.4f}, "
               f"operations {ops_ms:.4f})", flush=True)
@@ -622,9 +653,14 @@ def main():
     build_all()
 
     print("[3/7] K1 / K2 checks against the plain version (AI-TOD shapes)", flush=True)
-    errs = check_family(HBB, dev, hbb_cases(dev), seed=0)
+    cases = hbb_cases(dev)
+    errs = merge_errs(check_family(HBB, dev, cases, seed=0),
+                      check_channels(HBB, dev, cases[2], seed=5))
     print("[4/7] K3 / K4 checks against the plain version (SODA-A shapes)", flush=True)
-    rerrs = check_family(ROT, dev, rotated_cases(dev), seed=1)
+    cases = rotated_cases(dev)
+    rerrs = merge_errs(check_family(ROT, dev, cases, seed=1),
+                       check_channels(ROT, dev, cases[1], seed=6))
+    del cases
     torch.cuda.empty_cache()
     print("[5/7] kernel timing (bf16, main-path shapes)", flush=True)
     bw, f32_rate = peaks(name)

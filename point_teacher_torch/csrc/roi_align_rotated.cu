@@ -44,14 +44,32 @@
 // gradient) is 5-6x the map, and the 4 bilinear multiply-adds of a sample
 // and channel take about 2/3 of the bytes' time at the FP32 rate.
 //
-// Forward (K3): one block per (image, roi). Its threads first fill a shared
-// table of the roi's 196 samples: four tap offsets and four tap weights
-// (validity folded in). Then threads run along channels, so reads of
-// feat[b, y, x, :] and writes of out[b, n, bin, :] are coalesced, and each
-// thread sums 4 samples x 4 taps per bin in f32. Weights and the sum stay in
-// f32 whatever the feature dtype (the Pallas kernel builds its weights in
-// f32 as well, rroi_pallas.py:232-234, then casts them to the feature dtype;
-// the shipped XLA path builds them in the feature dtype).
+// Forward (K3), roi_align_rotated_fwd_kernel. The TPU kernel contracts each
+// roi's weights W_n [49, window cells] with its window on the matrix unit.
+// Here the bound is the pooled write: 125 MB a launch in bf16, 0.044-0.047 ms
+// at 3.35 TB/s. The first kernel (a block per roi, a shared table of 196
+// samples and a barrier, one channel a thread, 196 x 4 dependent 2-byte
+// loads and 49 2-byte stores per channel) ran 14x above it, bound by the
+// latency of its loads. This one:
+// - takes a warp per roi and 8 consecutive rois (mostly members of one bag,
+//   which share their cells) a block, with no block barrier;
+// - gives each lane 8 channels in bf16 (4 in f32), read and written as one
+//   16-byte vector, so one warp covers 256 channels in one pass; the stores
+//   are streaming stores (evict first: the output is written once and not
+//   read again here), which alone halved the time of the writes;
+// - merges, per bin, the 16 taps of its 2 x 2 samples where they share a
+//   cell, with the bin mean's 1/4 folded in (merge_bin_taps, the per-bin
+//   merge of the windowed backward's build_class_lists): a MIL roi's bin is
+//   a fraction of a cell, so a bag member's bin has 4-9 taps, not 16;
+// - starts a bin's loads, 4 at a time, before their multiply-adds;
+// - starts with the last roi groups, the MIL stage's negatives (large boxes
+//   whose taps rarely merge).
+// What is left is the instruction rate of the multiply-adds (8 conversions
+// and 8 FMAs per tap and lane) on top of the writes. Weights and the sum stay in f32
+// whatever the feature dtype (the Pallas kernel builds its weights in f32 as
+// well, rroi_pallas.py:232-234, then casts them to the feature dtype; the
+// shipped XLA path builds them in the feature dtype). C must be a multiple
+// of 8 (the wrapper raises otherwise).
 //
 // Backward (K4), roi_align_rotated_bwd_windowed_kernel: the TPU kernel adds
 // each roi's window gradient W^T @ dout into a resident d/dfeat map; here
@@ -96,13 +114,16 @@
 // never takes), and chip_smoke.py times it beside the windowed kernel.
 //
 // Left for later work: a tensor-core W^T @ dout, or more channels per
-// thread, instead of the list walk (about 10 instructions per entry and 32
-// channels, built and walked again by each channel slice); a deterministic
-// segmented backward; the same designs for K1-K3.
+// thread, instead of the backward's list walk (about 10 instructions per
+// entry and 32 channels, built and walked again by each channel slice); a
+// deterministic segmented backward.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
+
+#include "vec16.cuh"
 
 namespace {
 
@@ -127,8 +148,6 @@ constexpr int kWinSmem = kTileBytes + kListBytes + kStageBytes;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // One roi in feature cells, its (cos, sin) and its clamp bounds.
 struct Roi {
@@ -363,34 +382,133 @@ __device__ __forceinline__ void build_class_lists(int2 (*list)[kSamples], int* c
     if (lane == 0) count[k] = total;
 }
 
+// The forward (the header's design): merged taps of one bin of roi q. Each of
+// the bin's 4 samples has at most one tap of nonzero weight in each parity
+// class of the tap's cell (row parity, column parity): its nonzero taps lie
+// on distinct cells of a 2 x 2 square. So e[4 c + s] first takes sample s's
+// tap of class c (weight 0 where it has none), one sample at a time; then
+// per class the 4 samples' taps are merged where they share a cell (weights
+// summed in sample order) and written back compacted, with the bin mean's
+// 1/4 folded into the weights (exact: a power of two). Leaves (element
+// offset (y * W + x) * C, weight bits) entries in e and returns their
+// count, 1 to kBinTaps (a bin without a valid sample gets one entry of
+// weight 0).
+constexpr int kBinTaps = 16;
+
+__device__ __forceinline__ int merge_bin_taps(int2* e, const Roi& q, int bin, int H, int W,
+                                              int C) {
+    const int ph = bin / kOut, pw = bin % kOut;
+    #pragma unroll
+    for (int k = 0; k < kBinTaps; ++k) e[k] = make_int2(0, 0);
+    #pragma unroll
+    for (int s = 0; s < 4; ++s) {
+        const Sample p = sample_at(q, frac_of(pw * kRatio + (s & 1)),
+                                   frac_of(ph * kRatio + (s >> 1)), H, W);
+        #pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const int y = (k < 2) ? p.y0 : p.y1;
+            const int x = (k & 1) ? p.x1 : p.x0;
+            if (p.w[k] != 0.f) {
+                e[4 * (((y & 1) << 1) | (x & 1)) + s] = make_int2(y * W + x,
+                                                                  __float_as_int(p.w[k]));
+            }
+        }
+    }
+    int n = 0;
+    #pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        int o[4];
+        float w[4];
+        #pragma unroll
+        for (int s = 0; s < 4; ++s) {
+            const int2 t = e[4 * c + s];
+            o[s] = t.x;
+            w[s] = __int_as_float(t.y);
+        }
+        #pragma unroll
+        for (int m = 1; m < 4; ++m) {
+            #pragma unroll
+            for (int j = 0; j < m; ++j) {
+                if (w[m] != 0.f && w[j] != 0.f && o[m] == o[j]) {
+                    w[j] = __fadd_rn(w[j], w[m]);
+                    w[m] = 0.f;
+                }
+            }
+        }
+        // n <= 4 c: the compacted entries land on slots already read
+        #pragma unroll
+        for (int s = 0; s < 4; ++s) {
+            if (w[s] != 0.f) e[n++] = make_int2(o[s] * C, __float_as_int(__fmul_rn(w[s], 0.25f)));
+        }
+    }
+    if (n == 0) e[n++] = make_int2(0, 0);   // no valid sample: one term of weight 0
+    return n;
+}
+
+// Rotated RoIAlign forward (the header's design): a warp per roi, kFwdWarps
+// consecutive rois of one image a block, no block barrier. A round of
+// kRound bins: lane i merges bin r0 + i's taps into the warp's list, then
+// the warp pools the round's bins, each lane kVec<T> channels as one 16-byte
+// vector per tap, a bin's loads started kLoads at a time before their
+// multiply-adds. Blocks are scheduled in blockIdx.x order and the
+// MIL stage appends its negatives (large boxes whose taps rarely merge: the
+// slowest rois), so block x takes the x-th group of rois from the end.
+constexpr int kFwdWarps = 8;
+constexpr int kFwdThreads = kFwdWarps * 32;
+constexpr int kRound = 32;
+constexpr int kTapStride = kBinTaps + 1;     // padded: the lanes' lists start in distinct banks
+constexpr int kLoads = 4;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFwdThreads)
 roi_align_rotated_fwd_kernel(const T* __restrict__ feat, const float* __restrict__ rrois,
                              const float* __restrict__ cos_sin, const int* __restrict__ clamp,
                              T* __restrict__ out, int H, int W, int C, int N, float scale) {
-    __shared__ SampleTable t;
-    const int n = blockIdx.x;
+    constexpr int kVec = vec16::kVec<T>;
+    __shared__ int2 taps[kFwdWarps][kRound * kTapStride];
+    __shared__ int counts[kFwdWarps][kRound];
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int b = blockIdx.y;
-    build_table(t, rrois, cos_sin, clamp, b, n, N, H, W, scale);
+    const int n = (gridDim.x - 1 - blockIdx.x) * kFwdWarps + warp;
+    if (n >= N) return;
+    const Roi q = load_roi(rrois, cos_sin, clamp, static_cast<size_t>(b) * N + n, H, W, scale);
     const T* fb = feat + static_cast<size_t>(b) * H * W * C;
-    T* ob = out + (static_cast<size_t>(b) * N + n) * (kOut * kOut) * C;
+    T* ob = out + (static_cast<size_t>(b) * N + n) * kBins * C;
 
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-        for (int ph = 0; ph < kOut; ++ph) {
-            for (int pw = 0; pw < kOut; ++pw) {
-                float acc = 0.f;
-                for (int sy = 0; sy < kRatio; ++sy) {
-                    for (int sx = 0; sx < kRatio; ++sx) {
-                        const int s = (ph * kRatio + sy) * kAxis + pw * kRatio + sx;
-                        #pragma unroll
-                        for (int k = 0; k < 4; ++k) {
-                            acc += t.w[s][k] * load_f32(fb + static_cast<size_t>(t.off[s][k]) * C + c);
+    for (int r0 = 0; r0 < kBins; r0 += kRound) {
+        if (r0 + lane < kBins) {
+            counts[warp][lane] = merge_bin_taps(taps[warp] + lane * kTapStride, q, r0 + lane,
+                                                H, W, C);
+        }
+        __syncwarp();
+        const int bins = min(kRound, kBins - r0);
+        for (int g = lane * kVec; g < C; g += 32 * kVec) {
+            for (int i = 0; i < bins; ++i) {
+                const int2* e = taps[warp] + i * kTapStride;
+                const int m = counts[warp][i];
+                float acc[kVec];
+                #pragma unroll
+                for (int k = 0; k < kVec; ++k) acc[k] = 0.f;
+                for (int t0 = 0; t0 < m; t0 += kLoads) {
+                    uint4 v[kLoads];
+                    float w[kLoads];
+                    #pragma unroll
+                    for (int u = 0; u < kLoads; ++u) {
+                        if (t0 + u < m) {
+                            const int2 t = e[t0 + u];
+                            w[u] = __int_as_float(t.y);
+                            v[u] = vec16::load(fb + (t.x + g));
                         }
                     }
+                    #pragma unroll
+                    for (int u = 0; u < kLoads; ++u) {
+                        if (t0 + u < m) vec16::madd<T>(acc, v[u], w[u]);
+                    }
                 }
-                store_f32(ob + (ph * kOut + pw) * C + c, acc * 0.25f);
+                vec16::store(ob + (r0 + i) * C + g, acc);
             }
         }
+        __syncwarp();
     }
 }
 
@@ -629,20 +747,33 @@ extern "C" int pt_roi_align_rotated_fwd(const void* feat, const float* rrois,
                                         int dtype, int B, int H, int W, int C, int N,
                                         float scale, void* stream) {
     if (N == 0 || B == 0) return 0;
-    const dim3 grid(N, B);
+    // 16-byte channel vectors: C a multiple of 8; element offsets in an int
+    if (C % 8 != 0 || static_cast<long>(H) * W * C > INT_MAX) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const dim3 grid((N + kFwdWarps - 1) / kFwdWarps, B);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0) {
-        roi_align_rotated_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
+        roi_align_rotated_fwd_kernel<float><<<grid, kFwdThreads, 0, s>>>(
             static_cast<const float*>(feat), rrois, cos_sin, clamp, static_cast<float*>(out),
             H, W, C, N, scale);
     } else if (dtype == 1) {
-        roi_align_rotated_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        roi_align_rotated_fwd_kernel<__nv_bfloat16><<<grid, kFwdThreads, 0, s>>>(
             static_cast<const __nv_bfloat16*>(feat), rrois, cos_sin, clamp,
             static_cast<__nv_bfloat16*>(out), H, W, C, N, scale);
     } else {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's layout: info[0..5] = rois (warps) per block, threads per
+// block, static shared memory bytes, registers per thread, local memory
+// bytes per thread (spills), resident blocks per SM (bf16, on the current
+// device). Returns a CUDA error code.
+extern "C" int pt_roi_align_rotated_fwd_info(int* info) {
+    return vec16::fwd_info(roi_align_rotated_fwd_kernel<__nv_bfloat16>, kFwdWarps, kFwdThreads,
+                           info);
 }
 
 // The atomic backward (clamp may be null: the whole map).

@@ -16,11 +16,13 @@ window pool (roi_align_grouped_from_windows) exactly; without, it is
 roi_align_matmul.
 
 On a CPU tensor `roi_align` takes the plain version; on a CUDA tensor it
-launches the kernels or raises. The kernels are compiled with nvcc at first
-use into build/point_teacher_torch/ and loaded with ctypes. The backward with
-clamp bounds runs the windowed kernel, which sums the rois that share one
-window in shared memory; without them (the whole map) it runs the atomic
-kernel.
+launches the kernels or raises. The forward kernel reads and writes 16-byte
+vectors of 8 channels, so on the card C must be a multiple of 8 (ValueError
+otherwise); the plain version takes any C. The kernels are compiled with
+nvcc at first use into build/point_teacher_torch/ and loaded with ctypes.
+The backward with clamp bounds runs the windowed kernel, which sums the rois
+that share one window in shared memory; without them (the whole map) it runs
+the atomic kernel.
 """
 from __future__ import annotations
 
@@ -147,8 +149,9 @@ def _library():
         for fn in (lib.pt_roi_align_fwd, lib.pt_roi_align_bwd, lib.pt_roi_align_bwd_windowed):
             fn.argtypes = args
             fn.restype = ctypes.c_int
-        lib.pt_roi_align_bwd_windowed_info.argtypes = [ctypes.c_void_p]
-        lib.pt_roi_align_bwd_windowed_info.restype = ctypes.c_int
+        for fn in (lib.pt_roi_align_fwd_info, lib.pt_roi_align_bwd_windowed_info):
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -165,6 +168,11 @@ def _launch(fn_name: str, src: Tensor, rois: Tensor, clamp: Optional[Tensor], ds
                 dst.data_ptr(), _DTYPE_CODE[src.dtype], b, h, w, c, n, SPATIAL_SCALE, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed with CUDA error {rc}")
+
+
+def fwd_layout() -> dict:
+    """The forward kernel's launch layout and resources on the current card."""
+    return _cuda_build.fwd_layout(_library().pt_roi_align_fwd_info, "pt_roi_align_fwd_info")
 
 
 def windowed_layout() -> dict:
@@ -251,8 +259,10 @@ def _check(feat: Tensor, rois: Tensor, clamp: Optional[Tensor]) -> None:
         tensors.append(clamp)
     if any(t.device != feat.device for t in tensors):
         raise ValueError("feat, rois and clamp must be on one device")
-    if feat.device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
-        raise ValueError("roi_align's CUDA kernels take contiguous tensors")
+    if feat.device.type == "cuda":
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("roi_align's CUDA kernels take contiguous tensors")
+        _cuda_build.check_vectors(feat, "roi_align")
 
 
 def roi_align(feat: Tensor, rois: Tensor, clamp: Optional[Tensor] = None) -> Tensor:

@@ -25,11 +25,13 @@ the Pallas kernel builds them (the XLA path builds them in the feature
 dtype, so in bf16 the two differ by the rounding of the offsets).
 
 On a CPU tensor `roi_align_rotated` takes the plain version; on a CUDA
-tensor it launches the kernels or raises. The kernels are compiled with nvcc
-at first use into build/point_teacher_torch/ and loaded with ctypes. The
-backward with clamp bounds runs the windowed kernel, which sums the rois
-that share one window in shared memory; without them (the whole map) it runs
-the atomic kernel.
+tensor it launches the kernels or raises. The forward kernel reads and
+writes 16-byte vectors of 8 channels, so on the card C must be a multiple of
+8 (ValueError otherwise); the plain version takes any C. The kernels are
+compiled with nvcc at first use into build/point_teacher_torch/ and loaded
+with ctypes. The backward with clamp bounds runs the windowed kernel, which
+sums the rois that share one window in shared memory; without them (the
+whole map) it runs the atomic kernel.
 """
 from __future__ import annotations
 
@@ -204,8 +206,9 @@ def _library():
                    lib.pt_roi_align_rotated_bwd_windowed):
             fn.argtypes = [ctypes.c_void_p] * 5 + tail
             fn.restype = ctypes.c_int
-        lib.pt_roi_align_rotated_bwd_windowed_info.argtypes = [ctypes.c_void_p]
-        lib.pt_roi_align_rotated_bwd_windowed_info.restype = ctypes.c_int
+        for fn in (lib.pt_roi_align_rotated_fwd_info, lib.pt_roi_align_rotated_bwd_windowed_info):
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -224,6 +227,12 @@ def _launch(fn_name: str, tensors, b: int, h: int, w: int, c: int, n: int) -> No
                 _DTYPE_CODE[src.dtype], b, h, w, c, n, SPATIAL_SCALE, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed with CUDA error {rc}")
+
+
+def fwd_layout() -> dict:
+    """The forward kernel's launch layout and resources on the current card."""
+    return _cuda_build.fwd_layout(_library().pt_roi_align_rotated_fwd_info,
+                                  "pt_roi_align_rotated_fwd_info")
 
 
 def windowed_layout() -> dict:
@@ -317,8 +326,10 @@ def _check(feat: Tensor, rrois: Tensor, clamp: Optional[Tensor]) -> None:
         tensors.append(clamp)
     if any(t.device != feat.device for t in tensors):
         raise ValueError("feat, rrois and clamp must be on one device")
-    if feat.device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
-        raise ValueError("roi_align_rotated's CUDA kernels take contiguous tensors")
+    if feat.device.type == "cuda":
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("roi_align_rotated's CUDA kernels take contiguous tensors")
+        _cuda_build.check_vectors(feat, "roi_align_rotated")
 
 
 def roi_align_rotated(feat: Tensor, rrois: Tensor, clamp: Optional[Tensor] = None) -> Tensor:

@@ -12,6 +12,7 @@ import torch
 from point_teacher_tpu.ops.roi_align import (extract_group_windows, roi_align_gather,
                                              roi_align_grouped_from_windows, roi_align_matmul)
 from point_teacher_tpu.ops.roi_align_pallas import roi_align_batched_pallas
+from point_teacher_torch.ops import _cuda_build
 from point_teacher_torch.ops import roi_align as ra
 
 B, H, W, C = 2, 16, 20, 8
@@ -171,12 +172,15 @@ def test_full_map_clamp_equals_no_clamp():
                                   ra.roi_align(feat, rois).numpy())
 
 
-@pytest.mark.parametrize("bounds", [False, True], ids=["no_clamp", "clamp"])
-def test_dispatcher_takes_plain_path_on_cpu(bounds):
+@pytest.mark.parametrize("bounds, channels", [(False, C), (True, C), (True, 36)],
+                         ids=["no_clamp", "clamp", "clamp_c36"])
+def test_dispatcher_takes_plain_path_on_cpu(bounds, channels):
     """On the CPU, with or without clamp bounds (the windowed backward's
-    input on the card), the plain version runs and no launch counter moves."""
+    input on the card), the plain version runs and no launch counter moves;
+    it takes any channel count (the card's kernels want a multiple of 8)."""
     ra.reset_launch_counts()
-    feat = torch.from_numpy(_feat(8)).requires_grad_(True)
+    feat = torch.from_numpy(np.random.RandomState(8).randn(B, H, W, channels).astype(np.float32)
+                            * 3).requires_grad_(True)
     rois = torch.from_numpy(_edge_rois(np.random.RandomState(9)))
     clamp = None
     if bounds:
@@ -209,3 +213,19 @@ def test_dispatcher_rejects_bad_inputs(bad):
         feat = feat.half()
     with pytest.raises((ValueError, TypeError)):
         ra.roi_align(feat, rois, clamp)
+
+
+@pytest.mark.parametrize("case", ["c64", "c36", "misaligned"])
+def test_forward_vector_rule(case):
+    """The rule the dispatchers apply to a map on the card before the forward
+    kernels read it as 16-byte vectors of 8 channels: C a multiple of 8 and a
+    16-byte aligned start. Checked here on CPU tensors of the same layout."""
+    channels = 36 if case == "c36" else 64
+    flat = torch.zeros(B * H * W * channels + 8, dtype=torch.bfloat16)
+    start = 1 if case == "misaligned" else (-flat.data_ptr() % 16) // 2
+    feat = flat[start:start + B * H * W * channels].view(B, H, W, channels)
+    if case == "c64":
+        _cuda_build.check_vectors(feat, "roi_align")
+    else:
+        with pytest.raises(ValueError, match="8 channels a vector" if case == "c36" else "aligned"):
+            _cuda_build.check_vectors(feat, "roi_align")

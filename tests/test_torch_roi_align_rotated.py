@@ -213,6 +213,22 @@ def test_dispatcher_takes_plain_path_on_cpu():
     assert rr.launch_counts() == {"fwd": 0, "bwd": 0, "bwd_atomic": 0}
 
 
+@pytest.mark.parametrize("channels", [36, 64], ids=["c36", "c64"])
+def test_plain_path_takes_any_channel_count(channels):
+    """On the CPU the dispatcher takes any C (the card's kernels want a
+    multiple of 8): each channel is pooled on its own, so the first C
+    channels of a wider map pool to the same values, and no counter moves."""
+    rr.reset_launch_counts()
+    wide = torch.from_numpy(np.random.RandomState(15).randn(B, H, W, 72).astype(np.float32))
+    rrois = torch.from_numpy(_rrois(np.random.RandomState(16), n=7))
+    clamp = rr.roi_window_clamp(rrois, (H, W), 6).contiguous()
+    out = rr.roi_align_rotated(wide[..., :channels].contiguous(), rrois, clamp)
+    assert out.shape == (B, rrois.shape[1], 7, 7, channels)
+    np.testing.assert_array_equal(out.numpy(),
+                                  rr.roi_align_rotated(wide, rrois, clamp)[..., :channels].numpy())
+    assert rr.launch_counts() == {"fwd": 0, "bwd": 0, "bwd_atomic": 0}
+
+
 def test_clamp_helpers_match_the_reference_origins():
     """Window origins of roi_window_clamp and pallas_window_clamp against the
     JAX formulas (roi_align.py:778-779, rroi_pallas.py:241-244)."""

@@ -141,7 +141,21 @@ def _torch_batch(b):
 @pytest.fixture(scope="module")
 def runs():
     """Two chained rotated phase-2 steps of both packages from identical state;
-    the JAX step is compiled once."""
+    the JAX step is compiled once. The port's step runs on one CPU thread:
+    with several, torch sums the convolutions' weight gradients in an order
+    that varies from run to run (up to 1.5e-8 on a conv kernel after two
+    steps, while XLA's results are bitwise the same), enough to move the
+    closest update check across its bound in some runs (ROADMAP.md queue 3).
+    The thread count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _two_steps()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _two_steps():
     jcfg, tcfg = _configs()
     jmodel, params = random_rotated_flax_params(seed=5, frozen_stages=jcfg.optim.frozen_stages)
     # conditioning, as in test_torch_train_step.py: keep the bag logits out of

@@ -143,7 +143,19 @@ def _torch_batch(b):
 
 @pytest.fixture(scope="module")
 def runs():
-    """Two chained phase-2 steps of both packages from identical state."""
+    """Two chained phase-2 steps of both packages from identical state. The
+    port's step runs on one CPU thread, the thread count restored after:
+    with several, torch sums the convolutions' weight gradients in an order
+    that varies from run to run (ROADMAP.md queue 3)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _two_steps()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _two_steps():
     jcfg, tcfg = _configs()
     jmodel, params = random_flax_params(seed=5, frozen_stages=jcfg.optim.frozen_stages)
     # Conditioning (ROADMAP.md queue 3): the random init on raw 0-255 pixels
