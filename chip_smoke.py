@@ -32,17 +32,23 @@ Phases:
    layout and resources; for K2 and K4 also the atomic kernel at the same
    shapes, the zeroing and cast that both backward times include, and the
    windowed kernel's tile and launch layout;
-6. port check: a tiny HBB and a tiny rotated phase-2 step on the card
-   (kernels) and on the CPU (plain versions) from the same weights and
-   draws must agree;
+6. port checks: a tiny HBB and a tiny rotated step of each phase on the
+   card (kernels) and on the CPU (plain versions) from the same weights and
+   draws must agree; the phase-1 synthesis (black-paper boxes, rotated NMS,
+   rasterisation) at each fork's full width on the card against the CPU
+   from the same draws: boxes close, keep masks equal, raster masks equal
+   outside the pixels within 1e-4 px of a kept box's edge;
 7. main paths, each driven with the launch counts set to 0 just before and
-   read just after: 3 HBB phase-2 steps at full width (800 px, B=2,
-   ResNet-50 caffe / FPN / PSAGG, 100 GTs, bags of 25, 200 negatives per
-   image, bf16), then 3 SODA-A rotated phase-2 steps at full width
-   (1200 px, B=2, ResNet-50 pytorch style with trainable BN affine, GN head
-   with the angle branch, 100 GTs, bags of 25, 200 negatives per image,
-   bf16), through the functions the training CLI uses; each path must
-   launch its windowed backward (K2, K4) and never the atomic one.
+   read just after: HBB steps at full width (800 px, B=2, ResNet-50 caffe /
+   FPN / PSAGG, 100 GTs, bags of 25, 200 negatives per image, bf16), then
+   SODA-A rotated steps at full width (1200 px, B=2, ResNet-50 pytorch style
+   with trainable BN affine, GN head with the angle branch, 100 GTs, bags of
+   25, 200 negatives per image, bf16), through the functions the training
+   CLI uses and its phase switch with burn_in_step 2: 3 phase-1 steps (3
+   forward and 3 backward launches each: the synthetic reg bags, the real
+   reg bags, the real cls + negative pool), then 3 phase-2 steps (2 and 2);
+   each path must launch its windowed backward (K2, K4) and never the
+   atomic one.
 
 Any failure ends the run with a nonzero exit. The last line is the JSON
 contract line; the line before it is the card's name and power limit, and
@@ -63,8 +69,11 @@ import torch
 
 from point_teacher_torch.config_io import apply_overrides, load_config
 from point_teacher_torch.core.proposals import fine_proposals, negative_proposals
+from point_teacher_torch.core.synthetic import (SynCfg, generate_black_paper_batch,
+                                                make_syn_draws)
 from point_teacher_torch.ops import roi_align as ra
 from point_teacher_torch.ops import roi_align_rotated as rr
+from point_teacher_torch.ops.masks import rasterize_rboxes
 from point_teacher_torch.tools import train as cli
 from point_teacher_torch.train.steps import make_draws
 
@@ -517,12 +526,16 @@ def condition(state) -> None:
                 model.bbox_head.conv_reg.bias.fill_(1.0)
 
 
-def phase_port_check(dev, config: str):
-    """One tiny phase-2 step on the card and on the CPU from the same weights
-    and draws: the step's metrics must agree (TF32 is off, f32 throughout)."""
+def phase_port_check(dev, config: str, phase1: bool):
+    """One tiny step on the card and on the CPU from the same weights and
+    draws: the step's metrics must agree (TF32 is off, f32 throughout). The
+    phase-1 step synthesises with the config's shape priors scaled by 1/4
+    to the 64 px image."""
     cfg = apply_overrides(load_config(config),
                           ["pt.img_size=64", "pt.max_gt=6", "pt.burn_in_step=-1",
-                           "pt.num_training_burninstep2=6"])
+                           "pt.num_training_burninstep1=6", "pt.num_training_burninstep2=6"])
+    cfg["pt"] = cfg["pt"]._replace(shape_list=tuple(
+        (w / 4, h / 4, dw, dr) for w, h, dw, dr in cfg["pt"].shape_list))
     rotated = bool(cfg.get("rotated"))
     results = {}
     for device in (torch.device("cpu"), dev):
@@ -530,69 +543,133 @@ def phase_port_check(dev, config: str):
         if rotated:
             condition(state)
         batch = next(cli.synthetic_dataset(4, pt2, 0, rotated=rotated)(pt2.batch_size))
-        draws = make_draws(torch.Generator().manual_seed(5), pt2, pt2.batch_size, device)
-        results[device.type] = {k: float(v) for k, v in
-                                step_fn(state, cli.to_batch(batch, device), draws=draws).items()}
+        draws = make_draws(torch.Generator().manual_seed(5), pt2, pt2.batch_size, device, phase1)
+        results[device.type] = {k: float(v) for k, v in step_fn(
+            state, cli.to_batch(batch, device), phase1=phase1, draws=draws).items()}
     worst = 0.0
     for k, want in results["cpu"].items():
         got = results["cuda"][k]
         rel = abs(got - want) / max(abs(want), 1e-6)
         worst = max(worst, rel)
-        check(np.isfinite(got) and rel <= 1e-3, f"port check {config} {k}: cuda {got} vs cpu {want}")
-    print(f"port check {config}: tiny phase-2 step, cuda (kernels) vs cpu (plain): "
+        check(np.isfinite(got) and rel <= 1e-3,
+              f"port check {config} phase {2 - phase1} {k}: cuda {got} vs cpu {want}")
+    print(f"port check {config}: tiny phase-{2 - phase1} step, cuda (kernels) vs cpu (plain): "
           f"{len(results['cpu'])} metrics agree, worst rel diff {worst:.2e}", flush=True)
 
 
+def edge_pixels(rboxes, keep, h: int, w: int, margin: float = 1e-4):
+    """Pixels [B, H, W] within `margin` px of a kept box's edge, in f64: set
+    in the raster of the boxes grown by `margin`, not in that of the boxes
+    shrunk by it."""
+    rb = rboxes.double()
+    grow = torch.tensor([0, 0, 2 * margin, 2 * margin, 0], dtype=torch.float64,
+                        device=rb.device)
+    return (rasterize_rboxes(rb + grow, keep, h, w)
+            & ~rasterize_rboxes(rb - grow, keep, h, w))
+
+
+def phase_synthesis_check(dev, config: str) -> None:
+    """generate_black_paper_batch at the config's full width (B=2, 100 GTs of
+    4-16 px, a quarter of them padding) on the card against the CPU from the
+    same draws: keep masks equal, box coordinates within 1e-6 relative plus
+    1e-6 of the image side (a chain box's centre sums an offset of a few
+    hundred px, whose sin / cos differ by an ulp between the devices), raster
+    masks (the painted pixels) equal outside the pixels within 1e-4 px of an
+    edge."""
+    cfg = load_config(config)
+    pt, rotated = cfg["pt"], bool(cfg.get("rotated"))
+    s, g = pt.img_size, pt.max_gt
+    arrays = next(cli.synthetic_dataset(2, pt, 7, rotated=rotated)(B))  # pixels 0-254
+    arrays["gt_valid"][:, g - g // 4:] = False
+    draws = make_syn_draws(torch.Generator().manual_seed(11), len(pt.shape_list), B, g, "cpu")
+    outs = []
+    for device in (torch.device("cpu"), dev):
+        batch = cli.to_batch(arrays, device)
+        d = type(draws)(*(t.to(device) for t in draws))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate_black_paper_batch(d, batch.image, batch.gt_boxes, batch.gt_valid,
+                                         SynCfg(pt.shape_list, s), pt.syn_fill_value)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        outs.append([x.cpu() for x in out] + [ms])
+    (cimg, cxyxy, crb, cvalid, cms), (gimg, gxyxy, grb, gvalid, gms) = outs
+    check(torch.equal(cvalid, gvalid), f"synthesis {config}: keep masks differ "
+          f"({int((cvalid != gvalid).sum())} slots)")
+    check(bool(cvalid.any(-1).all()), f"synthesis {config}: an image kept no box")
+    worst = 0.0
+    for name, got, want in (("rboxes", grb, crb), ("xyxy", gxyxy, cxyxy)):
+        err = float(((got - want).abs() / (1e-6 * want.abs() + 1e-6 * s)).max())
+        check(err <= 1.0, f"synthesis {config}: {name} differ by {err:.2f} x the tolerance")
+        worst = max(worst, err)
+    cmask, gmask = (cimg == 255).all(-1), (gimg == 255).all(-1)
+    edge = edge_pixels(crb.to(dev), cvalid.to(dev), s, s).cpu()
+    diff = cmask != gmask
+    check(not bool((diff & ~edge).any()), f"synthesis {config}: {int((diff & ~edge).sum())} "
+          f"raster pixels differ away from an edge")
+    print(f"synthesis check {config} ({s} px, {g} GTs): kept {cvalid.sum(-1).tolist()} of "
+          f"{cvalid.shape[1]} slots on both; boxes within {worst:.2f} x the tolerance; {int(edge.sum())} pixels within 1e-4 "
+          f"px of an edge, {int(diff.sum())} of them differ; cuda {gms:.1f} ms (first call), "
+          f"cpu {cms:.1f} ms", flush=True)
+
+
 def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, trainable):
-    """3 full-width phase-2 steps of `config` through the CLI's setup and
-    step. `kernels` is the op module whose kernels the path must launch
-    (2 forward and 2 backward per step), `others` an op module whose kernels
-    it must not; `frozen` and `unchanged` parameters must not move,
-    `trainable` ones must. Returns the launch counts of the run."""
-    cfg = apply_overrides(load_config(config), ["pt.burn_in_step=-1"])
+    """Full-width steps of `config` through the CLI's setup, step and phase
+    switch, burn_in_step 2: 3 phase-1 steps (3 forward and 3 backward
+    launches each of `kernels`' op module), then 3 phase-2 steps (2 and 2);
+    `others` is an op module whose kernels the path must not launch;
+    `frozen` and `unchanged` parameters must not move, `trainable` ones
+    must. Returns the launch counts of the run."""
+    cfg = apply_overrides(load_config(config), ["pt.burn_in_step=2"])
     rotated = bool(cfg.get("rotated"))
-    pt, state, step_fn = cli.setup(cfg, 6, 0, dev)
+    pt, state, step_fn = cli.setup(cfg, 12, 0, dev)
     img = RIMG if rotated else IMG
     check(pt.img_size == img and pt.max_gt == G and pt.batch_size == B, "config drifted")
     named = {**dict(state.student.named_parameters()), **dict(state.student.named_buffers())}
     watch = frozen + unchanged + trainable
     before = {k: named[k].detach().clone() for k in watch}
     teacher0 = dict(state.teacher.named_parameters())["bbox_head.conv_cls.weight"].detach().clone()
-    batches = cli.synthetic_dataset(6, pt, 0, rotated=rotated)(pt.batch_size)
-    arrays = [next(batches) for _ in range(3)]
+    batches = cli.synthetic_dataset(12, pt, 0, rotated=rotated)(pt.batch_size)
+    arrays = [next(batches) for _ in range(6)]
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     others.reset_launch_counts()
-    # per step: 2 forward and 2 (windowed) backward launches, none of any
-    # other kernel (the atomic backward)
-    want = {k: 2 if k in ("fwd", "bwd") else 0 for k in kernels.launch_counts()}
-    step_ms, per_step = [], []
+    step_ms, peaks = {1: [], 2: []}, {}
     for i, a in enumerate(arrays):
         batch = cli.to_batch(a, dev)
+        phase1 = cli.is_phase1(state.step, pt.burn_in_step)
+        phase = 1 if phase1 else 2
+        # per step: 3 (phase 1) or 2 (phase 2) forward and windowed backward
+        # launches, none of any other kernel (the atomic backward)
+        n = 3 if phase1 else 2
+        want = {k: n if k in ("fwd", "bwd") else 0 for k in kernels.launch_counts()}
+        if phase == 2 and not step_ms[2]:
+            peaks[1] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         counts0 = kernels.launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        metrics = step_fn(state, batch, phase1=False)
+        metrics = step_fn(state, batch, phase1=phase1)
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms[phase].append((time.perf_counter() - t0) * 1e3)
         m = {k: float(v) for k, v in metrics.items()}
         bad = [k for k, v in m.items() if not np.isfinite(v)]
         check(not bad, f"{config} step {i + 1}: non-finite metrics {bad}")
-        per_step.append({k: v - counts0[k] for k, v in kernels.launch_counts().items()})
-        check(per_step[-1] == want, f"{config} step {i + 1}: launches {per_step[-1]} != {want}")
+        got = {k: v - counts0[k] for k, v in kernels.launch_counts().items()}
+        check(got == want, f"{config} step {i + 1} (phase {phase}): launches {got} != {want}")
         check(bool(state.points_cached[batch.image_ids].all()),
               f"{config} step {i + 1}: point caches not set")
-        print(f"{config} step {i + 1}: {step_ms[-1]:.1f} ms total_loss={m['total_loss']:.4f} "
-              f"loss_cls={m['loss_cls']:.4f} loss_bbox={m['loss_bbox']:.4f} "
-              f"mil_bags={m['stage0_loss_mil_bags']:.4f} "
-              f"coverage={m['stage0_cls_pool_coverage']:.4f} launches={per_step[-1]}",
-              flush=True)
+        print(f"{config} step {i + 1} (phase {phase}): {step_ms[phase][-1]:.1f} ms "
+              f"total_loss={m['total_loss']:.4f} loss_cls={m['loss_cls']:.4f} "
+              f"loss_bbox={m['loss_bbox']:.4f} mil_bags={m['stage0_loss_mil_bags']:.4f} "
+              f"coverage={m['stage0_cls_pool_coverage']:.4f} launches={got}", flush=True)
+    peaks[2] = torch.cuda.max_memory_allocated()
+    check(len(step_ms[1]) == 3 and len(step_ms[2]) == 3, f"{config}: phase switch {step_ms}")
     counts = kernels.launch_counts()
     launches = (counts["fwd"], counts["bwd"])
     check(not any(others.launch_counts().values()),
           f"{config}: launched the other module's kernels {others.launch_counts()}")
-    peak = torch.cuda.max_memory_allocated()
     moved = {k: float((named[k].detach() - before[k]).abs().max()) for k in watch}
     for k in frozen + unchanged:
         check(moved[k] == 0.0, f"{config}: frozen {k} changed by {moved[k]}")
@@ -600,10 +677,12 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
         check(moved[k] > 0.0, f"{config}: trainable {k} did not change")
     t_now = dict(state.teacher.named_parameters())["bbox_head.conv_cls.weight"]
     check(float((t_now - teacher0).abs().max()) > 0.0, f"{config}: teacher did not move by EMA")
-    steady = step_ms[1:]
-    print(f"main path {config}: phase-2 step ms (steps 2, 3) = {steady[0]:.1f}, "
-          f"{steady[1]:.1f}; imgs/s = {B * 1e3 / np.mean(steady):.3f}; peak memory "
-          f"{peak / 2**30:.2f} GiB; launches {counts}; frozen unchanged "
+    for phase in (1, 2):
+        steady = step_ms[phase][1:]
+        print(f"main path {config}: phase-{phase} step ms (steps 2, 3 of the phase) = "
+              f"{steady[0]:.1f}, {steady[1]:.1f}; imgs/s = {B * 1e3 / np.mean(steady):.3f}; "
+              f"peak memory {peaks[phase] / 2**30:.2f} GiB", flush=True)
+    print(f"main path {config}: launches {counts}; frozen unchanged "
           f"{len(frozen + unchanged)}, trainable moved {len(trainable)}", flush=True)
     return launches
 
@@ -676,8 +755,11 @@ def main():
     del reg, member, cls_neg, cls_neg_clamp
     torch.cuda.empty_cache()
     print("[6/7] port checks", flush=True)
-    phase_port_check(dev, "aitodv2_point_teacher_0.py")
-    phase_port_check(dev, "sodaa_point_teacher_1x.py")
+    for phase1 in (False, True):
+        phase_port_check(dev, "aitodv2_point_teacher_0.py", phase1)
+        phase_port_check(dev, "sodaa_point_teacher_1x.py", phase1)
+    phase_synthesis_check(dev, "aitodv2_point_teacher_0.py")
+    phase_synthesis_check(dev, "sodaa_point_teacher_1x.py")
     # the main paths run as in training: the default precision settings
     torch.backends.cudnn.allow_tf32 = True
     print("[7/7] main paths", flush=True)

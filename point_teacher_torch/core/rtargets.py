@@ -1,6 +1,5 @@
-"""Rotated FCOS targets of the pseudo path (counterpart of
-point_teacher_tpu/core/rtargets.py, pseudo_targets_rotated): one image,
-padded GTs. syn_targets_rotated comes with phase 1."""
+"""Rotated FCOS targets of the synthetic and the pseudo path (counterpart of
+point_teacher_tpu/core/rtargets.py): one image, padded GTs."""
 from __future__ import annotations
 
 import torch
@@ -19,6 +18,18 @@ def _take_targets(points: Tensor, rboxes: Tensor, assigned: Tensor):
     ltrb_all = rbox_ltrb_targets(points, rboxes)                      # [P, G, 4]
     ltrb = ltrb_all[torch.arange(points.shape[0], device=points.device), idx]
     return ltrb, rboxes[idx, 4:5]
+
+
+def syn_targets_rotated(points, cls_logits, gt_rboxes, gt_valid, num_classes: int,
+                        cfg: AssignerCfg):
+    """Targets of the synthetic view on its rotated boxes [G, 5], every GT
+    labelled 0. Returns (labels [P], ltrb [P, 4], angle [P, 1])."""
+    gt_labels = torch.zeros(gt_rboxes.shape[0], dtype=torch.long, device=gt_rboxes.device)
+    assigned = assign_points_to_gts(points, cls_logits, gt_rboxes[:, :4], gt_labels, gt_valid,
+                                    cfg)
+    labels = labels_from_assignment(assigned, gt_labels, num_classes)
+    ltrb, angle = _take_targets(points, gt_rboxes, assigned)
+    return labels, ltrb, angle
 
 
 def pseudo_targets_rotated(points, cls_logits, gt_points, gt_labels, gt_valid, pseudo_rboxes,

@@ -1,4 +1,4 @@
-"""Dense-head targets of the pseudo path (counterpart of
+"""Dense-head targets of the synthetic and the pseudo path (counterpart of
 point_teacher_tpu/core/targets.py): one image, padded GTs."""
 from __future__ import annotations
 
@@ -36,6 +36,16 @@ def box_targets_for_assignment(points: Tensor, gt_xyxy: Tensor, assigned: Tensor
     """(l, t, r, b) targets; unassigned points take GT row 0 (reference quirk)."""
     idx = assigned.clamp(0, gt_xyxy.shape[0] - 1)
     return bbox2distance(points, gt_xyxy[idx])
+
+
+def syn_targets(points, cls_logits, gt_xyxy, gt_valid, num_classes: int, cfg: AssignerCfg):
+    """Box-supervised targets of the synthetic view, every GT labelled 0.
+    Returns (labels [P], bbox_targets [P, 4])."""
+    gt_labels = torch.zeros(gt_xyxy.shape[0], dtype=torch.long, device=gt_xyxy.device)
+    assigned = assign_points_to_gts(points, cls_logits, xyxy_to_cxcywh(gt_xyxy), gt_labels,
+                                    gt_valid, cfg)
+    labels = labels_from_assignment(assigned, gt_labels, num_classes)
+    return labels, box_targets_for_assignment(points, gt_xyxy, assigned)
 
 
 def pseudo_targets(points, cls_logits, gt_points, gt_labels, gt_valid, pseudo_xyxy,

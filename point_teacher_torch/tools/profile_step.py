@@ -1,16 +1,18 @@
-"""Where a phase-2 step's time goes on the card.
+"""Where a step's time goes on the card.
 
-  python -m point_teacher_torch.tools.profile_step [CONFIG]
+  python -m point_teacher_torch.tools.profile_step [CONFIG] [--phase1]
 
-Runs the full-width phase-2 step of CONFIG (default
-configs/point_teacher/aitodv2_point_teacher_0.py: 800 px, B=2; the SODA-A
-config sodaa_point_teacher_1x.py runs the rotated step at 1200 px) in bf16
-on fabricated batches from a seeded init, WARMUP times, then STEPS times
-timed with the host clock around a synchronised step, then STEPS more
+Runs the full-width phase-2 step (with --phase1 the phase-1 step) of CONFIG
+(default configs/point_teacher/aitodv2_point_teacher_0.py: 800 px, B=2; the
+SODA-A config sodaa_point_teacher_1x.py runs the rotated step at 1200 px) in
+bf16 on fabricated batches from a seeded init, WARMUP times, then STEPS
+times timed with the host clock around a synchronised step, then STEPS more
 times under torch.profiler. Prints per step: the wall time (unprofiled), the
 device busy time (the union of the kernels' intervals, profiled) and the idle
-share, the launches, the busy time inside each `pt.*` range of the step, and
-the kernels with the most device time. Needs a CUDA card.
+share, the launches, the busy time and the launches inside each `pt.*` range
+of the step (a range named `pt.<part>/<sub>` lies inside `pt.<part>` and is
+listed under it, not counted twice), and the kernels with the most device
+time. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from collections import defaultdict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..config_io import apply_overrides, load_config
+from ..config_io import load_config
 from . import train as cli
 
 WARMUP, STEPS, TOP = 2, 3, 20
@@ -45,27 +47,29 @@ DEFAULT_CONFIG = "configs/point_teacher/aitodv2_point_teacher_0.py"
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    config = argv[0] if argv else DEFAULT_CONFIG
+    phase1 = "--phase1" in argv
+    args = [a for a in argv if a != "--phase1"]
+    config = args[0] if args else DEFAULT_CONFIG
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA card")
     dev = torch.device("cuda")
-    cfg = apply_overrides(load_config(config), ["pt.burn_in_step=-1"])
+    cfg = load_config(config)
     n_images = 2 * (WARMUP + 2 * STEPS)
     pt, state, step_fn = cli.setup(cfg, n_images, 0, dev)
     batches = [cli.to_batch(a, dev) for a in
                cli.synthetic_dataset(n_images, pt, 0, rotated=bool(cfg.get("rotated")))(pt.batch_size)]
     for batch in batches[:WARMUP]:
-        step_fn(state, batch)
+        step_fn(state, batch, phase1=phase1)
     torch.cuda.synchronize()
     walls = []
     for batch in batches[WARMUP:WARMUP + STEPS]:
         t0 = time.perf_counter()
-        step_fn(state, batch)
+        step_fn(state, batch, phase1=phase1)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for batch in batches[WARMUP + STEPS:]:
-            step_fn(state, batch)
+            step_fn(state, batch, phase1=phase1)
         torch.cuda.synchronize()
     n = STEPS
     gpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -74,7 +78,7 @@ def main(argv=None):
     iv = [(e.time_range.start, e.time_range.end) for e in kernels]
     busy_ms = _busy_us(iv) / 1e3
     wall_ms = sum(walls)
-    print(f"config: {config}; card: {torch.cuda.get_device_name(0)}; "
+    print(f"config: {config}; phase {1 if phase1 else 2}; card: {torch.cuda.get_device_name(0)}; "
           f"steps: {n} timed, then {n} profiled")
     print(f"wall ms/step (not profiled): {wall_ms / n:.2f} "
           f"(each: {', '.join(f'{w:.1f}' for w in walls)})")
@@ -83,13 +87,21 @@ def main(argv=None):
     print(f"kernel launches/step: {len(kernels) // n}; distinct kernels: "
           f"{len({e.name for e in kernels})}")
     ranges = defaultdict(float)
+    counts = defaultdict(int)
     for sp in spans:
         inside = [(a, b) for a, b in iv if a >= sp.time_range.start and b <= sp.time_range.end]
         ranges[sp.name] += _busy_us(inside) / 1e3
-    ranges["(outside the ranges: backward, point update)"] = busy_ms - sum(ranges.values())
-    print("device busy ms/step by range:")
-    for name, ms in sorted(ranges.items(), key=lambda kv: -kv[1]):
-        print(f"  {name:46s} {ms / n:9.3f}  {ms / busy_ms:6.3f}")
+        counts[sp.name] += len(inside)
+    top = [k for k in ranges if "/" not in k]
+    outside = "(outside the ranges: backward, point update)"
+    ranges[outside] = busy_ms - sum(ranges[k] for k in top)
+    counts[outside] = len(kernels) - sum(counts[k] for k in top)
+    print("device busy ms/step by range (ms, share of busy, launches/step):")
+    for name in sorted(top + [outside], key=lambda k: -ranges[k]):
+        for sub in [name] + sorted(k for k in ranges if k.startswith(name + "/")):
+            label = sub if sub == name else "  " + sub
+            print(f"  {label:46s} {ranges[sub] / n:9.3f}  {ranges[sub] / busy_ms:6.3f} "
+                  f"{counts[sub] // n:6d}")
     by_kernel = defaultdict(lambda: [0.0, 0])
     for e in kernels:
         by_kernel[e.name][0] += e.time_range.elapsed_us() / 1e3

@@ -1,14 +1,14 @@
 """Training entry point of the port (counterpart of tools/train.py).
 
   python -m point_teacher_torch.tools.train <config.py> --synthetic-data N
-      --max-steps K [--seed S] [--cpu] [--cfg-options pt.burn_in_step=-1 ...]
+      --max-steps K [--seed S] [--cpu] [--cfg-options pt.burn_in_step=100 ...]
 
 Runs on the CUDA card unless --cpu is given; asked for CUDA without a card it
 raises. A config with `rotated` (sodaa_point_teacher_1x) trains the rotated
-detector with the rotated step on rotated boxes. Only phase 2 is ported, so
-a step with step <= burn_in_step raises NotImplementedError: pass
-pt.burn_in_step=-1. Data comes from fabricated batches (--synthetic-data);
-checkpoints, validation and the dataset loader are not ported yet.
+detector with the rotated step on rotated boxes. Steps 0..burn_in_step run
+phase 1 (black-paper synthesis), later steps phase 2 (`is_phase1`). Data
+comes from fabricated batches (--synthetic-data); checkpoints, validation
+and the dataset loader are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,6 +33,12 @@ def resolve_device(cpu: bool) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: pass --cpu to run on the CPU")
     return torch.device("cuda")
+
+
+def is_phase1(step: int, burn_in_step: int) -> bool:
+    """The reference's phase switch (tools/train.py): burn-in step 1 while
+    step <= burn_in_step."""
+    return step <= burn_in_step
 
 
 def synthetic_dataset(n_images, cfg_pt, seed=0, rotated=False):
@@ -73,8 +79,8 @@ def to_batch(arrays: dict, device) -> Batch:
 
 
 def setup(cfg: dict, n_images: int, seed: int, device, dtype=None):
-    """Model, train state and step function of a phase-2 run of a config dict
-    of config_io.load_config: StudentFCOS and the HBB step, or, when the
+    """Model, train state and step function of a run of a config dict of
+    config_io.load_config: StudentFCOS and the HBB step, or, when the
     config says `rotated`, StudentRotatedFCOS and the rotated step."""
     pt = cfg["pt"]
     rotated = bool(cfg.get("rotated"))
@@ -100,7 +106,7 @@ def train(cfg: dict, n_images: int, max_steps: int, seed: int, device):
     batches = synthetic_dataset(n_images, pt, seed, rotated=bool(cfg.get("rotated")))
     for epoch in range(pt.optim.max_epochs):
         for arrays in batches(pt.batch_size):
-            phase1 = state.step <= pt.burn_in_step  # the reference's rule, tools/train.py
+            phase1 = is_phase1(state.step, pt.burn_in_step)
             t0 = time.perf_counter()
             metrics = step_fn(state, to_batch(arrays, device), phase1=phase1)
             if device.type == "cuda":
@@ -115,7 +121,7 @@ def train(cfg: dict, n_images: int, max_steps: int, seed: int, device):
 
 
 def parse_args(argv=None):
-    ap = argparse.ArgumentParser(description="Train Point-Teacher (PyTorch port, phase 2)")
+    ap = argparse.ArgumentParser(description="Train Point-Teacher (PyTorch port)")
     ap.add_argument("config")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cfg-options", nargs="*", default=None)

@@ -1,9 +1,8 @@
 """Static training configuration (the port's own copy of
 point_teacher_tpu/train/config.py; defaults mirror the AI-TOD-v2 0% config).
 
-Only the fields phase-2 training reads are here, HBB and OBB; the phase-1
-(synthesis, num_training_burninstep1, shape_list) and inference fields come
-with their slices.
+The fields both training phases read, HBB and OBB; the inference fields come
+with their slice.
 """
 from __future__ import annotations
 
@@ -11,7 +10,20 @@ from typing import NamedTuple, Tuple
 
 from ..core.proposals import FineProposalCfg
 from ..core.pseudo import FuseAssignerCfg
+from ..core.synthetic import SynCfg
 from .dense_losses import DenseLossCfg
+
+# per synthetic class (w, h, dw, dr): the prior size and the log-normal spreads
+DEFAULT_SHAPE_LIST = (
+    (20, 20, 0.5, 0.5), (10, 20, 0.5, 0.5), (30, 80, 0.5, 0.5),
+    (20, 50, 0.5, 0.5), (30, 120, 0.5, 0.5), (30, 40, 0.5, 0.5),
+)
+SODAA_SHAPE_LIST = (
+    (20, 20, 0.5, 0.5), (10, 20, 0.5, 0.5), (10, 30, 0.5, 0.5),
+    (40, 20, 0.5, 0.5), (30, 10, 0.5, 0.5),
+    (20, 50, 0.5, 0.5), (30, 20, 0.5, 0.5), (35, 40, 0.6, 0.5),
+)
+
 
 class OptimCfg(NamedTuple):
     base_lr: float = 0.005
@@ -45,6 +57,7 @@ class PointTeacherConfig(NamedTuple):
     top_k: int = 1
     beta: float = 0.25
     alpha: Tuple[float, float] = (0.01, 0.25)  # (mil_bbox, mil_bags) weights
+    num_training_burninstep1: int = 100
     num_training_burninstep2: int = 100
     dn_hyper_denoising: float = 0.2
     # Bag pooling: the grouped window pool clamps each member's samples into
@@ -62,6 +75,9 @@ class PointTeacherConfig(NamedTuple):
         FineProposalCfg(base_ratios=(1.0, 1.2, 1.3, 0.8, 0.7), shake_ratio=None, min_scale=4.0),
         FineProposalCfg(base_ratios=(1.0, 1.2, 1.3, 0.8, 0.7), shake_ratio=(0.1,), min_scale=16.0),
     )
+    # synthetic (phase 1)
+    syn_fill_value: float = 255.0  # paint value of the masked regions
+    shape_list: Tuple[Tuple[float, float, float, float], ...] = DEFAULT_SHAPE_LIST
     # assigners / losses
     fuse_assigner: FuseAssignerCfg = FuseAssignerCfg(
         num_pre=5, topk=3, cls_weight=1.0, reg_weight=1.0, insider_weight=1.0)
@@ -69,6 +85,10 @@ class PointTeacherConfig(NamedTuple):
     # runtime
     optim: OptimCfg = OptimCfg()
     stride: int = 8
+
+    @property
+    def syn_cfg(self) -> SynCfg:
+        return SynCfg(shape_list=self.shape_list, imgsize=self.img_size)
 
     def normalized(self) -> "PointTeacherConfig":
         """Propagate top-level fields into nested sub-configs."""
@@ -114,6 +134,7 @@ def config_sodaa(**overrides) -> PointTeacherConfig:
                             min_scale=4.0),
             FineProposalCfg(base_ratios=(1.0, 1.3, 0.8), shake_ratio=None, min_scale=4.0),
         ),
+        shape_list=SODAA_SHAPE_LIST,
         optim=OptimCfg(bn_affine_trainable=True),
     )
     base.update(overrides)
@@ -123,7 +144,8 @@ def config_sodaa(**overrides) -> PointTeacherConfig:
 def config_noisy(position: float, **overrides) -> PointTeacherConfig:
     """30/60/100% random-point configs: lamda=0.5, 75 training GTs, wider bags."""
     fine, ext = _noisy_proposals()
-    base = dict(position=position, lamda=0.5, num_training_burninstep2=75,
+    base = dict(position=position, lamda=0.5, num_training_burninstep1=75,
+                num_training_burninstep2=75,
                 fine_proposal_cfg=fine, fine_proposal_extensive_cfg=ext)
     base.update(overrides)
     return PointTeacherConfig(**base)

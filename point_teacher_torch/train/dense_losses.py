@@ -1,15 +1,15 @@
-"""Dense-head losses of the pseudo branch (counterpart of
-point_teacher_tpu/train/dense_losses.py; syn_branch_loss comes with phase 1).
-Denominators are taken over the whole batch."""
+"""Dense-head losses of the synthetic and the pseudo branch (counterpart of
+point_teacher_tpu/train/dense_losses.py). Denominators are taken over the
+whole batch."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
 
-from ..core.targets import AssignerCfg, pseudo_targets
+from ..core.targets import AssignerCfg, pseudo_targets, syn_targets
 from ..ops.boxes import distance2bbox
-from ..ops.losses import (binary_cross_entropy, centerness_target, dn_diou_loss,
+from ..ops.losses import (binary_cross_entropy, centerness_target, diou_loss, dn_diou_loss,
                           focal_loss_from_labels)
 
 Tensor = torch.Tensor
@@ -42,6 +42,23 @@ def _reg_and_centerness_loss(bbox_pred, centerness, points, labels, bbox_targets
     loss_ctr = binary_cross_entropy(centerness.reshape(-1), ctr_targets.reshape(-1),
                                     weight=pos.reshape(-1).float(), avg_factor=num_pos)
     return loss_bbox, loss_ctr
+
+
+def syn_branch_loss(cls_logits, bbox_pred, centerness, points, syn_boxes, syn_valid,
+                    cfg: DenseLossCfg):
+    """Box-supervised loss of the synthetic view -> (loss_bbox, loss_centerness):
+    DIoU weighted by the centerness targets, and the centerness BCE.
+
+    cls_logits [B, P, C]; bbox_pred [B, P, 4] px; centerness [B, P];
+    points [P, 2]; syn_boxes [B, S, 4] xyxy; syn_valid [B, S]."""
+    with torch.no_grad():
+        targets = [syn_targets(points, cls_logits[i], syn_boxes[i], syn_valid[i],
+                               cfg.num_classes, cfg.syn_assigner)
+                   for i in range(cls_logits.shape[0])]
+    labels, bbox_targets = (torch.stack(t) for t in zip(*targets))
+    return _reg_and_centerness_loss(
+        bbox_pred, centerness, points, labels, bbox_targets, cfg.num_classes,
+        lambda *a, base_valid=None, **kw: diou_loss(*a, **kw))
 
 
 def pseudo_branch_loss(cls_logits, bbox_pred, centerness, points, gt_points, gt_labels,

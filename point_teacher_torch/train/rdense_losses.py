@@ -1,15 +1,15 @@
-"""Rotated dense-head losses of the pseudo branch (counterpart of
-point_teacher_tpu/train/rdense_losses.py; syn_branch_loss_rotated comes with
-phase 1): focal cls, RotatedIoULoss on distance-angle-decoded boxes
-weighted by the centerness targets, centerness BCE. Denominators are taken
-over the whole batch."""
+"""Rotated dense-head losses of the synthetic and the pseudo branch
+(counterpart of point_teacher_tpu/train/rdense_losses.py): RotatedIoULoss on
+distance-angle-decoded boxes weighted by the centerness targets, the
+centerness BCE and, on the pseudo branch, the focal cls loss. Denominators
+are taken over the whole batch."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.rtargets import pseudo_targets_rotated
+from ..core.rtargets import pseudo_targets_rotated, syn_targets_rotated
 from ..core.targets import AssignerCfg
 from ..ops.losses import (binary_cross_entropy, centerness_target, focal_loss_from_labels,
                           rotated_iou_loss)
@@ -61,6 +61,21 @@ def _rotated_reg_loss(bbox_pred, angle_pred, centerness, points, labels, ltrb_t,
     loss_ctr = binary_cross_entropy(centerness.reshape(-1), ctr_t.reshape(-1),
                                     weight=pos.reshape(-1).float(), avg_factor=num_pos)
     return loss_bbox, loss_ctr
+
+
+def syn_branch_loss_rotated(cls_logits, bbox_pred, angle_pred, centerness, points, syn_rboxes,
+                            syn_valid, cfg: RDenseLossCfg):
+    """Loss of the synthetic view on its rotated boxes -> (loss_bbox,
+    loss_centerness). syn_rboxes [B, S, 5]; syn_valid [B, S]; the rest as
+    pseudo_branch_loss_rotated."""
+    with torch.no_grad():
+        targets = [syn_targets_rotated(points, cls_logits[i], syn_rboxes[i], syn_valid[i],
+                                       cfg.num_classes, cfg.syn_assigner)
+                   for i in range(cls_logits.shape[0])]
+    labels, ltrb_t, angle_t = (torch.stack(t) for t in zip(*targets))
+    return _rotated_reg_loss(bbox_pred, angle_pred, centerness, points, labels, ltrb_t, angle_t,
+                             cfg.num_classes, cfg.iou_mode,
+                             max_pos=cfg.syn_assigner.num_pre * syn_rboxes.shape[1])
 
 
 def pseudo_branch_loss_rotated(cls_logits, bbox_pred, angle_pred, centerness, points,

@@ -1,13 +1,12 @@
 """The rotated (OBB, SODA-A) Point-Teacher train step (counterpart of
-point_teacher_tpu/train/rsteps.py, the phase-2 branch of
-_make_rotated_step_fn).
+point_teacher_tpu/train/rsteps.py, _make_rotated_step_fn).
 
-Phase 2 is ported: EMA first, then the annotation points (cached, else the
-box centres or a sample in the rotated box), the teacher's pseudo rotated
-boxes, the student's rotated MIL refinement on the real view, the refreshed
-points, the rotated strong augmentation of the refined boxes, the student's
-pseudo branch on the augmented view, one optimizer update and the
-point-cache update. Phase 1 comes with a later slice.
+Both burn-in phases, as in the HBB step (train/steps.py) with the rotated
+deltas: the annotation points are cached, else the box centres or a sample
+in the rotated box; the teacher's pseudo boxes, the MIL bags and the strong
+augmentation are rotated; phase 1 trains the synthetic branch on the
+synthetic rotated boxes themselves (not their covers), and its regression
+loss decodes through the distance-angle coder.
 
 Randomness is an input (steps.Draws, with the per-image rotation angle);
 the step's parts run inside the `pt.*` profiler ranges of the HBB step.
@@ -25,9 +24,9 @@ from ..ops.boxes import grid_points
 from ..ops.rotated import rbox_iou
 from .config import PointTeacherConfig
 from .mil import mil_stage_rotated
-from .rdense_losses import RDenseLossCfg, pseudo_branch_loss_rotated
+from .rdense_losses import RDenseLossCfg, pseudo_branch_loss_rotated, syn_branch_loss_rotated
 from .state import Batch, TrainState, ema_update
-from .steps import Draws, make_draws
+from .steps import Draws, make_draws, synthesize, write_cache
 
 Tensor = torch.Tensor
 
@@ -59,21 +58,26 @@ def _teacher_pseudo(teacher, batch: Batch, gt_points, points, cfg: PointTeacherC
 
 
 def _run_rmil_stages(model, mil_feat, rboxes, labels, valid, real_rboxes,
-                     cfg: PointTeacherConfig, neg_u, hw, metrics: Dict[str, Tensor]):
-    """Unrolled rotated MIL stages with the bag loss; returns (refined rotated
-    boxes, weighted loss)."""
+                     cfg: PointTeacherConfig, neg_u, hw, metrics: Dict[str, Tensor],
+                     with_bags: bool = True):
+    """Unrolled rotated MIL stages; returns (refined rotated boxes, weighted
+    loss). Without bags (the synthetic branch) as steps._run_mil_stages."""
     total = torch.zeros((), device=rboxes.device)
     cur = rboxes
     for stage in range(cfg.num_stages):
         out = mil_stage_rotated(model, mil_feat, cur, labels, valid, real_rboxes,
                                 cfg.fine_proposal_cfg[stage],
                                 cfg.fine_proposal_extensive_cfg[stage], stage, hw, cfg.top_k,
-                                cfg.beta, cfg.dn_hyper_denoising, neg_u[stage], True,
+                                cfg.beta, cfg.dn_hyper_denoising,
+                                neg_u[stage] if with_bags else None, with_bags,
                                 window=cfg.mil_pool_window_rotated, grouped=cfg.mil_pool_grouped)
         metrics[f"stage{stage}_loss_mil_bbox"] = out.loss_mil_bbox * cfg.alpha[0]
         metrics[f"stage{stage}_coarse_bags_iou"] = out.coarse_bags_iou
         metrics[f"stage{stage}_refine_bags_iou"] = out.refine_bags_iou
         metrics[f"stage{stage}_cls_pool_coverage"] = out.cls_pool_coverage
+        if not with_bags:
+            total = total + out.loss_mil_bbox * cfg.alpha[0]
+            continue
         metrics[f"stage{stage}_loss_mil_bags"] = out.loss_mil_bags * cfg.alpha[1]
         total = total + out.loss_mil_bbox * cfg.alpha[0] + out.loss_mil_bags * cfg.alpha[1]
         metrics[f"stage{stage}_refine_bboxes_iou"] = _masked_iou(out.refined_boxes, real_rboxes,
@@ -84,8 +88,10 @@ def _run_rmil_stages(model, mil_feat, rboxes, labels, valid, real_rboxes,
 
 @torch.no_grad()
 def _point_update(state: TrainState, batch: Batch, origin, refined_rboxes,
-                  cfg: PointTeacherConfig, metrics: Dict[str, Tensor]) -> None:
-    """refined = (1 - lamda) * pseudo centre + lamda * origin, cached."""
+                  cfg: PointTeacherConfig, metrics: Dict[str, Tensor],
+                  gate: Optional[Tensor] = None) -> None:
+    """refined = (1 - lamda) * pseudo centre + lamda * origin, written where
+    `gate` (phase 1) is open; origin and cached always."""
     new_refined = (1 - cfg.lamda) * refined_rboxes[..., :2] + cfg.lamda * origin
     gt = batch.gt_boxes
     dist = torch.sqrt((new_refined - gt[..., :2]) ** 2) / torch.sqrt(
@@ -93,10 +99,7 @@ def _point_update(state: TrainState, batch: Batch, origin, refined_rboxes,
     mask = batch.gt_valid[..., None]
     metrics["refined_points_distance"] = (
         torch.where(mask, dist, 0.0).sum() / (mask.sum() * 1.0).clamp(min=1.0))
-    ids = batch.image_ids
-    state.refined_points[ids] = new_refined
-    state.origin_points[ids] = origin
-    state.points_cached[ids] = True
+    write_cache(state, batch.image_ids, origin, new_refined, gate)
 
 
 def build_rotated_train_step(cfg: PointTeacherConfig, rdense: Optional[RDenseLossCfg] = None):
@@ -109,14 +112,10 @@ def build_rotated_train_step(cfg: PointTeacherConfig, rdense: Optional[RDenseLos
 
     def step(state: TrainState, batch: Batch, phase1: bool = False,
              draws: Optional[Draws] = None) -> Dict[str, Tensor]:
-        if phase1:
-            raise NotImplementedError(
-                "phase 1 (burn-in step 1, black-paper synthesis) is not ported yet: "
-                "it is the next slice of the port; run with burn_in_step=-1")
         dev = batch.image.device
         b = batch.image.shape[0]
         if draws is None:
-            draws = make_draws(state.generator, cfg, b, dev)
+            draws = make_draws(state.generator, cfg, b, dev, phase1)
         points = grid_points(cfg.feat_size, cfg.feat_size, cfg.stride, device=dev)
         student, teacher = state.student, state.teacher
         with record_function("pt.ema"):
@@ -126,7 +125,8 @@ def build_rotated_train_step(cfg: PointTeacherConfig, rdense: Optional[RDenseLos
         cached = state.points_cached[batch.image_ids][:, None, None]
         origin = torch.where(cached, state.origin_points[batch.image_ids], sampled)
         gt_points = torch.where(cached, state.refined_points[batch.image_ids], sampled)
-        sl = slice(0, cfg.num_training_burninstep2)
+        nt = cfg.num_training_burninstep1 if phase1 else cfg.num_training_burninstep2
+        sl = slice(0, nt)
         metrics: Dict[str, Tensor] = {}
         with torch.no_grad(), record_function("pt.teacher"):
             ps = _teacher_pseudo(teacher, batch, gt_points, points, cfg)
@@ -138,32 +138,66 @@ def build_rotated_train_step(cfg: PointTeacherConfig, rdense: Optional[RDenseLos
             metrics["pseudo_mean_wh"] = pwh.sum() / (2 * vmask.sum()).clamp(min=1)
             metrics["pseudo_max_wh"] = pwh.max()
 
-        # student: rotated MIL refinement on the real view
-        with record_function("pt.student_feat"):
-            feat = student.extract_feat(batch.image).contiguous()
-        with record_function("pt.mil"):
-            refined_nt, mil_loss = _run_rmil_stages(
-                student, feat, ps["pseudo_boxes"][:, sl], ps["pseudo_labels"][:, sl],
-                batch.gt_valid[:, sl], batch.gt_boxes[:, sl], cfg, draws.neg_u, hw, metrics)
-        refined_full = ps["pseudo_boxes"].clone()
-        refined_full[:, sl] = refined_nt
-
-        with torch.no_grad(), record_function("pt.augment"):
+        def augment(refined_full, gate=None):
             # update_points runs before strong augmentation in the reference
-            new_pts = (1 - cfg.lamda) * refined_full[..., :2] + cfg.lamda * origin
-            aug = strong_augment_rotated(
-                RAugBatch(image=batch.image, gt_points=new_pts, gt_valid=batch.gt_valid,
-                          pseudo_points=refined_full[..., :2], pseudo_rboxes=refined_full,
-                          pseudo_valid=batch.gt_valid),
-                draws.aug_direction, draws.aug_u, draws.aug_angle)
+            with torch.no_grad(), record_function("pt.augment"):
+                new_pts = (1 - cfg.lamda) * refined_full[..., :2] + cfg.lamda * origin
+                if gate is not None:
+                    new_pts = torch.where(gate, new_pts, gt_points)
+                return strong_augment_rotated(
+                    RAugBatch(image=batch.image, gt_points=new_pts, gt_valid=batch.gt_valid,
+                              pseudo_points=refined_full[..., :2], pseudo_rboxes=refined_full,
+                              pseudo_valid=batch.gt_valid),
+                    draws.aug_direction, draws.aug_u, draws.aug_angle)
 
-        with record_function("pt.student_aug"):
-            cls_a, bbox_a, ang_a, ctr_a = _flatten_rhead(
-                student.head(student.extract_feat(aug.image)))
+        gate = None
+        if phase1:
+            with torch.no_grad(), record_function("pt.synthesis"):
+                img_syn, syn_rboxes, syn_valid, gate = synthesize(draws.syn, batch, cfg, True)
+            # refinement discarded: the augmented view comes from the coarse
+            # pseudo boxes, and the three views run as one batch (steps.py)
+            refined_full = ps["pseudo_boxes"]
+            aug = augment(refined_full, gate)
+            with record_function("pt.student_feat"):
+                feat_all = student.extract_feat(torch.cat([img_syn, batch.image, aug.image]))
+                cls_all, bbox_all, ang_all, ctr_all = _flatten_rhead(
+                    student.head(torch.cat([feat_all[:b], feat_all[2 * b:]])))
+            with record_function("pt.dense_loss"):
+                loss_bbox, loss_ctr = syn_branch_loss_rotated(
+                    cls_all[:b], bbox_all[:b], ang_all[:b], ctr_all[:b], points, syn_rboxes,
+                    syn_valid, rdense)
+            with record_function("pt.mil"):
+                _, mil_syn = _run_rmil_stages(
+                    student, feat_all[:b].contiguous(), syn_rboxes[:, :nt],
+                    torch.zeros_like(batch.gt_labels[:, sl]), syn_valid[:, :nt],
+                    syn_rboxes[:, :nt], cfg, draws.neg_u, hw, metrics, with_bags=False)
+                _, mil_ori = _run_rmil_stages(
+                    student, feat_all[b:2 * b].contiguous(), ps["pseudo_boxes"][:, sl],
+                    ps["pseudo_labels"][:, sl], batch.gt_valid[:, sl], batch.gt_boxes[:, sl],
+                    cfg, draws.neg_u, hw, metrics)
+                mil_loss = (mil_syn + mil_ori) * gate
+            cls_a, bbox_a, ang_a, ctr_a = cls_all[b:], bbox_all[b:], ang_all[b:], ctr_all[b:]
+        else:
+            # student: rotated MIL refinement on the real view
+            with record_function("pt.student_feat"):
+                feat = student.extract_feat(batch.image).contiguous()
+            with record_function("pt.mil"):
+                refined_nt, mil_loss = _run_rmil_stages(
+                    student, feat, ps["pseudo_boxes"][:, sl], ps["pseudo_labels"][:, sl],
+                    batch.gt_valid[:, sl], batch.gt_boxes[:, sl], cfg, draws.neg_u, hw, metrics)
+            refined_full = ps["pseudo_boxes"].clone()
+            refined_full[:, sl] = refined_nt
+            aug = augment(refined_full)
+            with record_function("pt.student_aug"):
+                cls_a, bbox_a, ang_a, ctr_a = _flatten_rhead(
+                    student.head(student.extract_feat(aug.image)))
+
         with record_function("pt.dense_loss"):
-            loss_cls, loss_bbox, loss_ctr = pseudo_branch_loss_rotated(
+            loss_cls, loss_bbox_ps, loss_ctr_ps = pseudo_branch_loss_rotated(
                 cls_a, bbox_a, ang_a, ctr_a, points, aug.gt_points, batch.gt_labels,
                 aug.gt_valid, aug.pseudo_rboxes, aug.pseudo_valid & batch.gt_valid, rdense)
+        if not phase1:
+            loss_bbox, loss_ctr = loss_bbox_ps, loss_ctr_ps
         metrics["loss_cls"] = loss_cls
         metrics["loss_bbox"] = loss_bbox
         metrics["loss_centerness"] = loss_ctr
@@ -175,7 +209,7 @@ def build_rotated_train_step(cfg: PointTeacherConfig, rdense: Optional[RDenseLos
             total.backward()
         with record_function("pt.optimizer"):
             state.optimizer.step()
-        _point_update(state, batch, origin, refined_full, cfg, metrics)
+        _point_update(state, batch, origin, refined_full, cfg, metrics, gate)
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 

@@ -1,10 +1,19 @@
 """The Point-Teacher train step (counterpart of point_teacher_tpu/train/steps.py).
 
-Phase 2 (burn-in step 2, the training majority) is ported: EMA first, then
-the annotation points, the teacher's pseudo boxes, the student's MIL
-refinement, strong augmentation of the refined boxes, the student's pseudo
-branch on the augmented view, one optimizer update and the point-cache
-update. Phase 1 (black-paper synthesis) comes with the next slice.
+Both burn-in phases. Each step: EMA first, then the annotation points, the
+teacher's pseudo boxes, and then
+- phase 2 (burn-in step 2, the training majority): the student's MIL
+  refinement on the real view, strong augmentation of the refined boxes,
+  the student's pseudo branch on the augmented view;
+- phase 1 (burn-in step 1): black-paper synthetic images with their boxes
+  (compacted to the front), the gate (every image kept a synthetic box),
+  strong augmentation of the COARSE pseudo boxes (the refinement is
+  discarded), one student feature pass over [synthetic, real, augmented]
+  with the head on the synthetic and augmented rows, the synthetic branch's
+  box and centerness losses, MIL on the synthetic bags (regression only)
+  and on the real bags, both gated, and the pseudo branch's cls loss;
+then one optimizer update and the point-cache update (phase 1 writes the
+refined points only where the gate is open).
 
 Randomness is an input: `Draws` holds every random number a step consumes,
 and `make_draws` makes them from the state's torch.Generator.
@@ -21,9 +30,10 @@ from torch.autograd.profiler import record_function
 
 from ..core.augment import AugBatch, random_point_in_boxes, strong_augment
 from ..core.pseudo import generate_pseudo_boxes
+from ..core.synthetic import SynDraws, generate_black_paper_batch, make_syn_draws
 from ..ops.boxes import bbox_overlaps, grid_points, xyxy_to_cxcywh
 from .config import PointTeacherConfig
-from .dense_losses import pseudo_branch_loss
+from .dense_losses import pseudo_branch_loss, syn_branch_loss
 from .mil import mil_stage
 from .state import Batch, TrainState, ema_update
 
@@ -36,10 +46,11 @@ class Draws(NamedTuple):
     aug_u: Tensor                    # [B] uniforms in [0.8, 1.2) for the rescale
     neg_u: Tuple[Optional[Tensor], ...]  # per MIL stage [B, 4, gen_num_neg] or None
     aug_angle: Optional[Tensor] = None   # [B] rotation in whole degrees 1-19 (rotated step)
+    syn: Optional[SynDraws] = None       # the synthesis's draws (phase 1)
 
 
 def make_draws(generator: torch.Generator, cfg: PointTeacherConfig, batch_size: int,
-               device) -> Draws:
+               device, phase1: bool = False) -> Draws:
     g, b = generator, batch_size
     neg = []
     for stage in range(cfg.num_stages):
@@ -51,7 +62,25 @@ def make_draws(generator: torch.Generator, cfg: PointTeacherConfig, batch_size: 
         aug_u=(0.8 + 0.4 * torch.rand((b,), generator=g)).to(device),
         neg_u=tuple(None if u is None else u.to(device) for u in neg),
         aug_angle=torch.randint(1, 20, (b,), generator=g).float().to(device),
+        syn=(make_syn_draws(g, len(cfg.shape_list), b, cfg.max_gt, device) if phase1
+             else None),
     )
+
+
+def synthesize(syn_draws: SynDraws, batch: Batch, cfg: PointTeacherConfig, rotated: bool):
+    """The phase-1 synthetic view: (img_syn [B, H, W, 3], boxes [B, S, 4]
+    xyxy covers, or [B, S, 5] rotated when `rotated`, valid [B, S], gate).
+    The valid boxes are compacted to the front (a stable sort), so that the
+    first num_training slots hold them; the gate, a 0-d bool tensor, is open
+    when every image kept at least one."""
+    img_syn, syn_xyxy, syn_rboxes, syn_valid = generate_black_paper_batch(
+        syn_draws, batch.image, batch.gt_boxes, batch.gt_valid, cfg.syn_cfg,
+        fill_value=cfg.syn_fill_value)
+    boxes = syn_rboxes if rotated else syn_xyxy
+    order = torch.argsort((~syn_valid).to(torch.uint8), dim=-1, stable=True)
+    boxes = boxes.gather(1, order[..., None].expand_as(boxes))
+    syn_valid = syn_valid.gather(1, order)
+    return img_syn, boxes, syn_valid, syn_valid.any(-1).all()
 
 
 def _flatten_head(outs):
@@ -82,20 +111,27 @@ def _gather_points(state: TrainState, batch: Batch, point_u, cfg: PointTeacherCo
 
 
 def _run_mil_stages(model, mil_feat, boxes, labels, valid, real_boxes,
-                    cfg: PointTeacherConfig, neg_u, hw, metrics: Dict[str, Tensor]):
-    """Unrolled MIL stages with the bag loss; returns (refined boxes, weighted loss)."""
+                    cfg: PointTeacherConfig, neg_u, hw, metrics: Dict[str, Tensor],
+                    with_bags: bool = True):
+    """Unrolled MIL stages; returns (refined boxes, weighted loss). Without
+    bags (the synthetic branch) a stage trains the regression only and the
+    boxes stay as they are; its metrics go under the same keys, which the
+    real branch's stages then overwrite."""
     total = torch.zeros((), device=boxes.device)
     cur = boxes
     for stage in range(cfg.num_stages):
         out = mil_stage(model, mil_feat, cur, labels, valid, real_boxes,
                         cfg.fine_proposal_cfg[stage], cfg.fine_proposal_extensive_cfg[stage],
                         stage, hw, cfg.top_k, cfg.beta, cfg.dn_hyper_denoising,
-                        neg_u[stage], True, window=cfg.mil_pool_window,
-                        grouped=cfg.mil_pool_grouped)
+                        neg_u[stage] if with_bags else None, with_bags,
+                        window=cfg.mil_pool_window, grouped=cfg.mil_pool_grouped)
         metrics[f"stage{stage}_loss_mil_bbox"] = out.loss_mil_bbox * cfg.alpha[0]
         metrics[f"stage{stage}_coarse_bags_iou"] = out.coarse_bags_iou
         metrics[f"stage{stage}_refine_bags_iou"] = out.refine_bags_iou
         metrics[f"stage{stage}_cls_pool_coverage"] = out.cls_pool_coverage
+        if not with_bags:
+            total = total + out.loss_mil_bbox * cfg.alpha[0]
+            continue
         metrics[f"stage{stage}_loss_mil_bags"] = out.loss_mil_bags * cfg.alpha[1]
         total = total + out.loss_mil_bbox * cfg.alpha[0] + out.loss_mil_bags * cfg.alpha[1]
         ious = bbox_overlaps(out.refined_boxes, real_boxes, is_aligned=True)
@@ -107,8 +143,10 @@ def _run_mil_stages(model, mil_feat, boxes, labels, valid, real_boxes,
 
 @torch.no_grad()
 def _point_update(state: TrainState, batch: Batch, origin, refined_boxes,
-                  cfg: PointTeacherConfig, metrics: Dict[str, Tensor]) -> None:
-    """update_points: refined = (1 - lamda) * pseudo centre + lamda * origin, cached."""
+                  cfg: PointTeacherConfig, metrics: Dict[str, Tensor],
+                  gate: Optional[Tensor] = None) -> None:
+    """update_points: refined = (1 - lamda) * pseudo centre + lamda * origin,
+    written where `gate` (phase 1) is open; origin and cached always."""
     pseudo_centre = xyxy_to_cxcywh(refined_boxes)[..., :2]
     new_refined = (1 - cfg.lamda) * pseudo_centre + cfg.lamda * origin
     gt_c = xyxy_to_cxcywh(batch.gt_boxes)
@@ -117,7 +155,14 @@ def _point_update(state: TrainState, batch: Batch, origin, refined_boxes,
     mask = batch.gt_valid[..., None]
     metrics["refined_points_distance"] = (
         torch.where(mask, dist, 0.0).sum() / mask.sum().clamp(min=1))
-    ids = batch.image_ids
+    write_cache(state, batch.image_ids, origin, new_refined, gate)
+
+
+def write_cache(state: TrainState, ids, origin, new_refined, gate: Optional[Tensor]) -> None:
+    """The point caches of images `ids`: the refined points where `gate` is
+    open (always without one), the original points and the cached flag always."""
+    if gate is not None:
+        new_refined = torch.where(gate, new_refined, state.refined_points[ids])
     state.refined_points[ids] = new_refined
     state.origin_points[ids] = origin
     state.points_cached[ids] = True
@@ -131,21 +176,18 @@ def build_train_step(cfg: PointTeacherConfig):
 
     def step(state: TrainState, batch: Batch, phase1: bool = False,
              draws: Optional[Draws] = None) -> Dict[str, Tensor]:
-        if phase1:
-            raise NotImplementedError(
-                "phase 1 (burn-in step 1, black-paper synthesis) is not ported yet: "
-                "it is the next slice of the port; run with burn_in_step=-1")
         dev = batch.image.device
         b = batch.image.shape[0]
         if draws is None:
-            draws = make_draws(state.generator, cfg, b, dev)
+            draws = make_draws(state.generator, cfg, b, dev, phase1)
         points = grid_points(cfg.feat_size, cfg.feat_size, cfg.stride, device=dev)
         student, teacher = state.student, state.teacher
         with record_function("pt.ema"):
             ema_update(teacher, student, cfg.ema_alpha)
 
         origin, gt_points = _gather_points(state, batch, draws.point_u, cfg)
-        sl = slice(0, cfg.num_training_burninstep2)
+        nt = cfg.num_training_burninstep1 if phase1 else cfg.num_training_burninstep2
+        sl = slice(0, nt)
         metrics: Dict[str, Tensor] = {}
         with torch.no_grad(), record_function("pt.teacher"):
             ps = _teacher_pseudo(teacher, batch, gt_points, points, cfg)
@@ -160,32 +202,70 @@ def build_train_step(cfg: PointTeacherConfig):
             metrics["pseudo_mean_wh"] = pwh.sum() / (2 * vmask.sum()).clamp(min=1)
             metrics["pseudo_max_wh"] = pwh.max()
 
-        # student: MIL refinement on the real view
-        with record_function("pt.student_feat"):
-            feat = student.extract_feat(batch.image).contiguous()
-        with record_function("pt.mil"):
-            refined_nt, mil_loss = _run_mil_stages(
-                student, feat, ps["pseudo_boxes"][:, sl], ps["pseudo_labels"][:, sl],
-                batch.gt_valid[:, sl], batch.gt_boxes[:, sl], cfg, draws.neg_u, hw, metrics)
-        refined_full = ps["pseudo_boxes"].clone()
-        refined_full[:, sl] = refined_nt
-
-        with torch.no_grad(), record_function("pt.augment"):
+        def augment(refined_full, gate=None):
             # update_points runs before strong augmentation in the reference
-            pseudo_centre = xyxy_to_cxcywh(refined_full)[..., :2]
-            new_pts = (1 - cfg.lamda) * pseudo_centre + cfg.lamda * origin
-            aug = strong_augment(
-                AugBatch(image=batch.image, gt_points=new_pts, gt_valid=batch.gt_valid,
-                         pseudo_points=pseudo_centre, pseudo_boxes=refined_full,
-                         pseudo_valid=batch.gt_valid),
-                draws.aug_direction, draws.aug_u)
+            with torch.no_grad(), record_function("pt.augment"):
+                pseudo_centre = xyxy_to_cxcywh(refined_full)[..., :2]
+                new_pts = (1 - cfg.lamda) * pseudo_centre + cfg.lamda * origin
+                if gate is not None:
+                    new_pts = torch.where(gate, new_pts, gt_points)
+                return strong_augment(
+                    AugBatch(image=batch.image, gt_points=new_pts, gt_valid=batch.gt_valid,
+                             pseudo_points=pseudo_centre, pseudo_boxes=refined_full,
+                             pseudo_valid=batch.gt_valid),
+                    draws.aug_direction, draws.aug_u)
 
-        with record_function("pt.student_aug"):
-            cls_a, bbox_a, ctr_a = _flatten_head(student.head(student.extract_feat(aug.image)))
+        gate = None
+        if phase1:
+            with torch.no_grad(), record_function("pt.synthesis"):
+                img_syn, syn_boxes, syn_valid, gate = synthesize(draws.syn, batch, cfg, False)
+            # the phase-1 refinement is discarded, so the augmented view comes
+            # from the coarse pseudo boxes, and the student's three views run
+            # as one batch; the head runs on the synthetic and augmented rows
+            # only (FrozenBN: every row is independent of the others)
+            refined_full = ps["pseudo_boxes"]
+            aug = augment(refined_full, gate)
+            with record_function("pt.student_feat"):
+                feat_all = student.extract_feat(torch.cat([img_syn, batch.image, aug.image]))
+                cls_all, bbox_all, ctr_all = _flatten_head(
+                    student.head(torch.cat([feat_all[:b], feat_all[2 * b:]])))
+            with record_function("pt.dense_loss"):
+                loss_bbox, loss_ctr = syn_branch_loss(cls_all[:b], bbox_all[:b], ctr_all[:b],
+                                                      points, syn_boxes, syn_valid, cfg.dense)
+            with record_function("pt.mil"):
+                # regression on the synthetic bags (exact boxes, labels 0), then
+                # bag selection and classification on the real view
+                _, mil_syn = _run_mil_stages(
+                    student, feat_all[:b].contiguous(), syn_boxes[:, :nt],
+                    torch.zeros_like(batch.gt_labels[:, sl]), syn_valid[:, :nt],
+                    syn_boxes[:, :nt], cfg, draws.neg_u, hw, metrics, with_bags=False)
+                _, mil_ori = _run_mil_stages(
+                    student, feat_all[b:2 * b].contiguous(), ps["pseudo_boxes"][:, sl],
+                    ps["pseudo_labels"][:, sl], batch.gt_valid[:, sl], batch.gt_boxes[:, sl],
+                    cfg, draws.neg_u, hw, metrics)
+                mil_loss = (mil_syn + mil_ori) * gate
+            cls_a, bbox_a, ctr_a = cls_all[b:], bbox_all[b:], ctr_all[b:]
+        else:
+            # student: MIL refinement on the real view
+            with record_function("pt.student_feat"):
+                feat = student.extract_feat(batch.image).contiguous()
+            with record_function("pt.mil"):
+                refined_nt, mil_loss = _run_mil_stages(
+                    student, feat, ps["pseudo_boxes"][:, sl], ps["pseudo_labels"][:, sl],
+                    batch.gt_valid[:, sl], batch.gt_boxes[:, sl], cfg, draws.neg_u, hw, metrics)
+            refined_full = ps["pseudo_boxes"].clone()
+            refined_full[:, sl] = refined_nt
+            aug = augment(refined_full)
+            with record_function("pt.student_aug"):
+                cls_a, bbox_a, ctr_a = _flatten_head(
+                    student.head(student.extract_feat(aug.image)))
+
         with record_function("pt.dense_loss"):
-            loss_cls, loss_bbox, loss_ctr = pseudo_branch_loss(
+            loss_cls, loss_bbox_ps, loss_ctr_ps = pseudo_branch_loss(
                 cls_a, bbox_a, ctr_a, points, aug.gt_points, batch.gt_labels, aug.gt_valid,
                 aug.pseudo_boxes, aug.pseudo_valid & batch.gt_valid, cfg.dense)
+        if not phase1:
+            loss_bbox, loss_ctr = loss_bbox_ps, loss_ctr_ps
         metrics["loss_cls"] = loss_cls
         metrics["loss_bbox"] = loss_bbox
         metrics["loss_centerness"] = loss_ctr
@@ -197,7 +277,7 @@ def build_train_step(cfg: PointTeacherConfig):
             total.backward()
         with record_function("pt.optimizer"):
             state.optimizer.step()
-        _point_update(state, batch, origin, refined_full, cfg, metrics)
+        _point_update(state, batch, origin, refined_full, cfg, metrics, gate)
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 

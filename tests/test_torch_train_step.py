@@ -1,8 +1,13 @@
-"""One phase-2 Point-Teacher step, then two chained steps, of the port
-(point_teacher_torch.train.steps) against the JAX build_train_step: the
-same params, batches and random draws (the JAX key chain replayed), in f32
-on the CPU. Every metric key, the updated student and teacher params and the
-point caches are compared. Also runs the port's training CLI on the CPU."""
+"""The port's Point-Teacher step (point_teacher_torch.train.steps) against
+the JAX build_train_step, from the same params, batches and random draws
+(the JAX key chain replayed), in f32 on the CPU:
+- phase 2: one step, then two chained steps;
+- phase 1: one step with the gate open, then a chain across the phase
+  switch (that phase-1 step, then a phase-2 step), and one step with the
+  gate closed (an image without a valid GT keeps no synthetic box).
+Every metric key, the updated student and teacher params, the point caches
+and the gate are compared; the JAX step is built once, and compiles once
+per phase. Also runs the port's training CLI on the CPU across the switch."""
 import os
 import subprocess
 import sys
@@ -26,7 +31,9 @@ from point_teacher_torch.train import config as tconfig
 from point_teacher_torch.train.state import Batch, create_train_state
 from point_teacher_torch.train.steps import Draws, build_train_step
 from point_teacher_torch.utils.jax_weights import load_jax_params
+from point_teacher_torch.train.steps import synthesize
 from test_torch_models import NUM_CLASSES, random_flax_params
+from test_torch_synthetic import SMALL_SHAPE_LIST, replay_syn_draws
 
 B, IMG, G, NNEG, NUM_IMAGES = 2, 64, 6, 8, 8
 FEAT_SCALE = np.float32(1e-2)
@@ -37,17 +44,18 @@ def _configs():
     fine = dict(base_ratios=(1.0,), shake_ratio=None, min_scale=0.0, gen_num_neg=NNEG)
     ext = dict(base_ratios=(1.0, 1.2, 0.8), shake_ratio=None, min_scale=4.0)
     common = dict(num_classes=NUM_CLASSES, img_size=IMG, max_gt=G, batch_size=B,
-                  num_training_burninstep2=G)
+                  num_training_burninstep1=G, num_training_burninstep2=G,
+                  shape_list=SMALL_SHAPE_LIST)
     jcfg = PointTeacherConfig(fine_proposal_cfg=(FineProposalCfg(**fine),),
-                              fine_proposal_extensive_cfg=(FineProposalCfg(**ext),),
-                              num_training_burninstep1=G, **common)
+                              fine_proposal_extensive_cfg=(FineProposalCfg(**ext),), **common)
     tcfg = tconfig.PointTeacherConfig(fine_proposal_cfg=(TFineProposalCfg(**fine),),
                                       fine_proposal_extensive_cfg=(TFineProposalCfg(**ext),),
                                       **common)
     return jcfg, tcfg
 
 
-def _batch(seed):
+def _batch(seed, empty_image=None):
+    """A batch of B images; `empty_image` has no valid GT."""
     r = np.random.RandomState(seed)
     img = r.randint(0, 255, (B, IMG, IMG, 3)).astype(np.float32)
     cxy = r.uniform(10, IMG - 10, (B, G, 2))
@@ -55,16 +63,19 @@ def _batch(seed):
     boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
     valid = np.ones((B, G), bool)
     valid[:, -2:] = False
+    if empty_image is not None:
+        valid[empty_image] = False
     return dict(image=img, gt_boxes=boxes,
                 gt_labels=r.randint(0, NUM_CLASSES, (B, G)).astype(np.int32),
                 gt_valid=valid, image_ids=(np.arange(B) + 2 * seed).astype(np.int32))
 
 
-def replay_draws(rng, batch, cfg):
-    """The draws JAX's phase-2 step makes from state.rng (train/steps.py:202,
+def replay_draws(rng, batch, cfg, phase1=False):
+    """The draws JAX's step makes from state.rng (train/steps.py:202,
     core/augment.py:134-138, train/steps.py:96, train/mil.py:523,
-    core/proposals.py:150-154), as the port's Draws."""
-    _, k_pts, _, k_aug, _, k_mil = jax.random.split(rng, 6)
+    core/proposals.py:150-154, and in phase 1 core/synthetic.py), as the
+    port's Draws. The synthetic branch's MIL stages draw no negatives."""
+    _, k_pts, k_syn, k_aug, _, k_mil = jax.random.split(rng, 6)
     point_u = np.asarray(jax.random.uniform(k_pts, batch["gt_boxes"][..., :2].shape))
     dirs, us = [], []
     for k in jax.random.split(k_aug, B):
@@ -79,8 +90,9 @@ def replay_draws(rng, batch, cfg):
         neg.append(torch.from_numpy(np.stack([
             np.stack([np.asarray(jax.random.uniform(k4, (n,))) for k4 in jax.random.split(k, 4)])
             for k in jax.random.split(sub, B)])))
+    syn = replay_syn_draws(k_syn, B, cfg.max_gt, len(cfg.shape_list)) if phase1 else None
     return Draws(torch.from_numpy(point_u.copy()), torch.tensor(dirs),
-                 torch.tensor(us, dtype=torch.float32), tuple(neg))
+                 torch.tensor(us, dtype=torch.float32), tuple(neg), syn=syn)
 
 
 def _steady_rng():
@@ -142,51 +154,69 @@ def _torch_batch(b):
 
 
 @pytest.fixture(scope="module")
-def runs():
-    """Two chained phase-2 steps of both packages from identical state. The
-    port's step runs on one CPU thread, the thread count restored after:
+def chains():
+    """The step chains of both packages, each from identical state: two
+    phase-2 steps; a phase-1 step then a phase-2 step; a phase-1 step whose
+    gate is closed. The JAX step is built once, so each phase compiles once.
+    The port's step runs on one CPU thread, the thread count restored after:
     with several, torch sums the convolutions' weight gradients in an order
     that varies from run to run (ROADMAP.md queue 3)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        return _two_steps()
+        jcfg, tcfg = _configs()
+        jmodel, params = random_flax_params(seed=5, frozen_stages=jcfg.optim.frozen_stages)
+        # Conditioning (ROADMAP.md queue 3): the random init on raw 0-255 pixels
+        # gives PSAGG features near 1e3 and bag logits far into f32 sigmoid
+        # saturation, where gfocal's log(1 - p + eps) turns last-bit differences
+        # of the logits into 0.3% of loss_mil_bags. Scaling the last PSAGG conv
+        # keeps the logits in the range where f32 agrees.
+        agg = params["params"]["neck_agg"]["agg_conv4"]
+        agg["kernel"] = agg["kernel"] * FEAT_SCALE
+        agg["bias"] = agg["bias"] * FEAT_SCALE
+        tx = make_optimizer(params, jcfg.optim)
+        jstep = jax_build_step(jmodel, tx, jcfg)
+        run = lambda plan: _run_chain(jcfg, tcfg, params, tx, jstep, plan)
+        return dict(phase2=run([(False, _batch(0)), (False, _batch(1))]),
+                    phase1=run([(True, _batch(0)), (False, _batch(1))]),
+                    gate_closed=run([(True, _batch(2, empty_image=1))]))
     finally:
         torch.set_num_threads(threads)
 
 
-def _two_steps():
-    jcfg, tcfg = _configs()
-    jmodel, params = random_flax_params(seed=5, frozen_stages=jcfg.optim.frozen_stages)
-    # Conditioning (ROADMAP.md queue 3): the random init on raw 0-255 pixels
-    # gives PSAGG features near 1e3 and bag logits far into f32 sigmoid
-    # saturation, where gfocal's log(1 - p + eps) turns last-bit differences
-    # of the logits into 0.3% of loss_mil_bags. Scaling the last PSAGG conv
-    # keeps the logits in the range where f32 agrees.
-    agg = params["params"]["neck_agg"]["agg_conv4"]
-    agg["kernel"] = agg["kernel"] * FEAT_SCALE
-    agg["bias"] = agg["bias"] * FEAT_SCALE
-    tx = make_optimizer(params, jcfg.optim)
-    jstate = jax_create_state(params, tx, num_images=NUM_IMAGES, max_gt=G, rng=_steady_rng())
-    jstep = jax_build_step(jmodel, tx, jcfg)
+@pytest.fixture(scope="module")
+def runs(chains):
+    return chains["phase2"]
 
+
+@pytest.fixture(scope="module")
+def phase1_runs(chains):
+    """[phase-1 step (gate open), then a phase-2 step, phase-1 step (gate closed)]."""
+    return chains["phase1"] + chains["gate_closed"]
+
+
+def _run_chain(jcfg, tcfg, params, tx, jstep, plan):
+    """Steps (phase1, batch) of both packages from `params`, the teacher a
+    copy of the student; per step the metrics, the trees after it and before
+    it, the point caches and each package's phase-1 gate."""
+    jstate = jax_create_state(params, tx, num_images=NUM_IMAGES, max_gt=G, rng=_steady_rng())
     port = StudentFCOS(num_classes=NUM_CLASSES, frozen_stages=tcfg.optim.frozen_stages,
                        dtype=torch.float32)
     load_jax_params(port, params)
     tstate = create_train_state(port, tcfg.optim, NUM_IMAGES, G)
     tstep = build_train_step(tcfg)
 
-    # both packages start from `params`, the teacher a copy of the student
     start = jax.tree_util.tree_map(np.asarray, params)
     tstart = load_torch_detector_into(params, _snapshot(tstate.student))
     before = dict(jparams=start, jteacher=start, tparams=tstart, tteacher=tstart)
     out = []
-    for seed in (0, 1):
-        b = _batch(seed)
-        draws = replay_draws(jstate.rng, b, jcfg)
+    for phase1, b in plan:
+        draws = replay_draws(jstate.rng, b, jcfg, phase1)
+        fresh = not np.asarray(jstate.points_cached)[b["image_ids"]].any()
         jstate, jm = jstep(jstate, JaxBatch(**{k: jnp.asarray(v) for k, v in b.items()}),
-                           phase1=False)
-        tm = tstep(tstate, _torch_batch(b), phase1=False, draws=draws)
+                           phase1=phase1)
+        tm = tstep(tstate, _torch_batch(b), phase1=phase1, draws=draws)
+        gates = _gates(jstate, b, tcfg, draws, fresh) if phase1 else None
         out.append(dict(
             jm={k: float(v) for k, v in jm.items()},
             tm={k: float(v) for k, v in tm.items()},
@@ -198,10 +228,21 @@ def _two_steps():
                                             jstate.points_cached)],
             tcache=[x.numpy().copy() for x in (tstate.origin_points, tstate.refined_points,
                                                tstate.points_cached)],
-            before=before,
+            before=before, gates=gates,
         ))
         before = {k: out[-1][k] for k in before}
     return out
+
+
+def _gates(jstate, b, tcfg, draws, fresh):
+    """Each package's phase-1 gate (every image kept a synthetic box). JAX's
+    is read from its cache: on images seen for the first time the step
+    writes the refined points, which start at 0, only where the gate is
+    open (lamda 1: the sampled points, never 0)."""
+    assert fresh, "the gate is read on images seen for the first time"
+    jgate = bool((np.asarray(jstate.refined_points)[b["image_ids"]] != 0).all())
+    tgate = synthesize(draws.syn, _torch_batch(b), tcfg, rotated=False)[3]
+    return jgate, bool(tgate)
 
 
 @pytest.mark.parametrize("step", [0, 1], ids=["one_step", "two_chained_steps"])
@@ -226,22 +267,76 @@ def test_point_caches_match_jax(runs, step):
     np.testing.assert_array_equal(r["tcache"][2], r["jcache"][2])
 
 
-def test_phase1_raises_not_implemented():
-    """A phase-1 step raises before it touches the state."""
-    _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        build_train_step(tcfg)(None, _torch_batch(_batch(0)), phase1=True)
+PHASE1_IDS = ["phase1_step", "across_the_switch", "phase1_gate_closed"]
 
 
-def test_cli_runs_on_cpu():
-    cmd = [sys.executable, "-m", "point_teacher_torch.tools.train",
-           os.path.join(REPO, "configs/point_teacher/aitodv2_point_teacher_0.py"),
-           "--cpu", "--synthetic-data", "4", "--max-steps", "1", "--cfg-options",
-           "pt.img_size=64", "pt.max_gt=6", "pt.burn_in_step=-1"]
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-2000:]
+@pytest.mark.parametrize("step", [0, 1, 2], ids=PHASE1_IDS)
+def test_phase1_metrics_match_jax(phase1_runs, step):
+    test_metrics_match_jax(phase1_runs, step)
+
+
+@pytest.mark.parametrize("step", [0, 1, 2], ids=PHASE1_IDS)
+@pytest.mark.parametrize("which", ["params", "teacher"])
+def test_phase1_updated_params_match_jax(phase1_runs, step, which):
+    assert_trees_and_updates_match(phase1_runs[step], which)
+
+
+@pytest.mark.parametrize("step", [0, 1, 2], ids=PHASE1_IDS)
+def test_phase1_point_caches_match_jax(phase1_runs, step):
+    test_point_caches_match_jax(phase1_runs, step)
+
+
+@pytest.mark.parametrize("step,want", [(0, True), (2, False)], ids=["open", "closed"])
+def test_phase1_gate_matches_jax(phase1_runs, step, want):
+    """Both packages' gates agree, and the cases cover it open and closed;
+    closed, the MIL losses are zeroed and the refined points stay unwritten."""
+    r = phase1_runs[step]
+    assert r["gates"] == (want, want)
+    if not want:
+        ids = np.arange(B) + 4  # _batch(2)'s image ids
+        np.testing.assert_array_equal(r["tcache"][1][ids], 0.0)
+        assert r["tcache"][2][ids].all()
+
+
+def run_cli_across_the_switch(config):
+    """Two steps of the port's training CLI on the CPU with burn_in_step 0:
+    the first runs phase 1, the second phase 2 (the CLI's rule). Returns the
+    two steps' JSON records."""
     import json
+    cmd = [sys.executable, "-m", "point_teacher_torch.tools.train",
+           os.path.join(REPO, "configs/point_teacher", config),
+           "--cpu", "--synthetic-data", "4", "--max-steps", "2", "--cfg-options",
+           "pt.img_size=64", "pt.max_gt=6", "pt.burn_in_step=0"]
+    # one thread: beside the other test workers, torch's default of one
+    # thread a core oversubscribes the CPU and slows the run several-fold
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
     records = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
-    assert len(records) == 1 and records[0]["step"] == 1
+    assert [r["step"] for r in records] == [1, 2]
+    return records
+
+
+@pytest.fixture(scope="module")
+def cli_records():
+    return run_cli_across_the_switch("aitodv2_point_teacher_0.py")
+
+
+def test_cli_runs_on_cpu(cli_records):
+    """The CLI's phase-2 step on the CPU (the second step of the run)."""
+    assert cli_records[1]["step"] == 2
     for k in ("loss_cls", "loss_bbox", "loss_centerness", "total_loss"):
-        assert np.isfinite(records[0][k]), k
+        assert np.isfinite(cli_records[1][k]), k
+
+
+CLI_KEYS = ["loss_cls", "loss_bbox", "loss_centerness", "total_loss", "stage0_loss_mil_bags",
+            "stage0_loss_mil_bbox", "refined_points_distance"]
+
+
+@pytest.mark.parametrize("phase", [1, 2])
+@pytest.mark.parametrize("key", CLI_KEYS)
+def test_cli_runs_both_phases_on_cpu(cli_records, phase, key):
+    """Each phase's step has the same metric keys, and this one is finite."""
+    r = cli_records[phase - 1]
+    assert set(r) == set(cli_records[0])
+    assert np.isfinite(r[key]), key
