@@ -48,7 +48,22 @@ Phases:
    forward and 3 backward launches each: the synthetic reg bags, the real
    reg bags, the real cls + negative pool), then 3 phase-2 steps (2 and 2);
    each path must launch its windowed backward (K2, K4) and never the
-   atomic one.
+   atomic one;
+8. inference and eval, with the launch counts set to 0 just before and
+   read just after (inference pools nothing: no RoIAlign kernel may
+   launch): the HBB teacher that phase 7 trained, at full width (800 px,
+   B=2, bf16, nms_pre 3000, score_thr 0.05, IoU 0.5, max 3000), as trained
+   and dense (a copy whose classification bias is 0 and whose boxes span
+   ~3.5 strides: all 24,000 candidates pass, the class NMS runs its 6
+   chunks with suppression chains). For each: decode + NMS on the card against the CPU from the
+   same head outputs (valid sets, labels and boxes equal; a difference is
+   printed with the IoU of the flipped pairs and fails), the forward, the
+   NMS and the whole inference timed (CUDA events, median of 10 after
+   warm-up), the peak memory, and TTA at 800 px with flip (2 views, 48,000
+   candidates). Then the eval: phase 7's train state written by
+   save_checkpoint, as `tools.train --work-dir` writes it, evaluated by the
+   test CLI's main on 8 fabricated 800 px images (the AP@0.25 table), and
+   the dense copy through evaluate_detector, each with its host time.
 
 Any failure ends the run with a nonzero exit. The last line is the JSON
 contract line; the line before it is the card's name and power limit, and
@@ -57,7 +72,10 @@ check's), after the run's total seconds.
 """
 from __future__ import annotations
 
+import copy
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -71,13 +89,23 @@ from point_teacher_torch.config_io import apply_overrides, load_config
 from point_teacher_torch.core.proposals import fine_proposals, negative_proposals
 from point_teacher_torch.core.synthetic import (SynCfg, generate_black_paper_batch,
                                                 make_syn_draws)
+from point_teacher_torch.data.pipeline import make_tta_views
+from point_teacher_torch.evalx.runner import build_infer, evaluate_detector, synthetic_val_set
+from point_teacher_torch.inference import build_tta_inference_fn, get_bboxes
+from point_teacher_torch.ops import nms as nms_ops
+from point_teacher_torch.ops.boxes import bbox_overlaps, grid_points
 from point_teacher_torch.ops import roi_align as ra
 from point_teacher_torch.ops import roi_align_rotated as rr
 from point_teacher_torch.ops.masks import rasterize_rboxes
+from point_teacher_torch.tools import test as test_cli
 from point_teacher_torch.tools import train as cli
-from point_teacher_torch.train.steps import make_draws
+from point_teacher_torch.tools.profile_step import make_dense
+from point_teacher_torch.train.steps import _flatten_head, make_draws
+from point_teacher_torch.utils.checkpoint import save_checkpoint
 
 IMG, FEAT, CH, B, G, NEG = 800, 100, 256, 2, 100, 200
+HBB_CONFIG = "configs/point_teacher/aitodv2_point_teacher_0.py"
+ROOT = os.path.dirname(os.path.abspath(__file__))
 EXT_RATIOS = (1.0, 1.2, 1.3, 0.8, 0.7)
 RIMG, RFEAT, RWIN = 1200, 150, 16              # SODA-A
 REXT_RATIOS = (1.0, 1.2, 1.3, 0.8, 0.6)
@@ -619,7 +647,7 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
     launches each of `kernels`' op module), then 3 phase-2 steps (2 and 2);
     `others` is an op module whose kernels the path must not launch;
     `frozen` and `unchanged` parameters must not move, `trainable` ones
-    must. Returns the launch counts of the run."""
+    must. Returns the launch counts of the run and the train state."""
     cfg = apply_overrides(load_config(config), ["pt.burn_in_step=2"])
     rotated = bool(cfg.get("rotated"))
     pt, state, step_fn = cli.setup(cfg, 12, 0, dev)
@@ -684,7 +712,118 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
               f"peak memory {peaks[phase] / 2**30:.2f} GiB", flush=True)
     print(f"main path {config}: launches {counts}; frozen unchanged "
           f"{len(frozen + unchanged)}, trainable moved {len(trainable)}", flush=True)
-    return launches
+    return launches, state
+
+
+# --------------------------------------------------------------------------
+# inference and eval (phase 8)
+# --------------------------------------------------------------------------
+
+def compare_nms(case: str, card, cpu) -> str:
+    """Decode + NMS of the card against the CPU's, per image: the valid rows'
+    (label, box) sets must be equal. Prints each row that only one side
+    kept with its IoU against the other side's rows of its class (flips
+    against the 0.5 threshold), then fails. Returns whether the outputs
+    were also bit-identical in order and score."""
+    (cd, cl, cv), (pd, pl, pv) = [x.cpu() for x in card], cpu
+    if all(torch.equal(a, b) for a, b in ((cd, pd), (cl, pl), (cv, pv))):
+        return "bit-identical, every row"
+    bad = 0
+    for b in range(B):
+        rows = [{(int(l),) + tuple(d[:4].tolist()): float(d[4]) for d, l in zip(dd[vv], ll[vv])}
+                for dd, ll, vv in ((cd[b], cl[b], cv[b]), (pd[b], pl[b], pv[b]))]
+        for side, mine, other in (("card", rows[0], rows[1]), ("cpu", rows[1], rows[0])):
+            for key in sorted(set(mine) - set(other)):
+                bad += 1
+                peers = [k for k in other if k[0] == key[0] and k not in mine]
+                iou = (bbox_overlaps(torch.tensor([key[1:]]), torch.tensor([k[1:] for k in peers]))
+                       if peers else torch.zeros(1, 0))
+                top = sorted(zip(iou[0].tolist(), peers), reverse=True)[:3]
+                print(f"  {case} image {b}: only the {side} kept label {key[0]} box "
+                      f"{key[1:]} score {mine[key]:.9g}; IoU with the other side's rows of "
+                      f"its class: {[(round(v, 6), v > 0.5) for v, _ in top]}", flush=True)
+    check(bad == 0, f"{case}: the card's NMS differs from the CPU's in {bad} rows")
+    err = float((cd[..., 4] - pd[..., 4]).abs().max())
+    return f"the same sets; order or scores differ (max score diff {err:.3e})"
+
+
+def phase_inference(dev, state) -> None:
+    """Phase 8 (see the module docstring): the HBB teacher of `state`."""
+    ra.reset_launch_counts()
+    rr.reset_launch_counts()
+    cfg = load_config(HBB_CONFIG)
+    pt = cfg["pt"]
+    check(pt.img_size == IMG and pt.batch_size == B and pt.test.nms_pre == 3000
+          and pt.test.max_per_img == 3000 and pt.num_classes == 8, "test config drifted")
+    infer = build_infer(pt)
+    batches, _ = synthetic_val_set(pt, B, False)
+    images = torch.as_tensor(batches[0], device=dev)
+    ones = torch.ones((B, 4), device=dev)
+    points = grid_points(FEAT, FEAT, pt.stride, device=dev)
+    views = [{k: torch.as_tensor(v, device=dev) for k, v in view.items()}
+             for view in make_tta_views(batches[0][0], (IMG,), True)]
+    tta_fn = build_tta_inference_fn(pt.test, [IMG, IMG], pt.stride)
+    dense = copy.deepcopy(state.teacher)
+    make_dense(dense)
+
+    def decode(heads, pts, scale):
+        return get_bboxes(*heads, pts, (IMG, IMG), scale, pt.test)
+
+    for case, model in (("as trained", state.teacher), ("dense", dense)):
+        with torch.no_grad():
+            heads = _flatten_head(model(images)[0])
+        above = int((torch.sigmoid(heads[0]) > pt.test.score_thr).sum())
+        card = decode(heads, points, ones)
+        cpu = decode([h.cpu() for h in heads], points.cpu(), ones.cpu())
+        same = compare_nms(case, card, cpu)
+        n_valid = card[2].sum(-1).tolist()
+        check(bool(torch.isfinite(card[0]).all()), f"{case}: non-finite detections")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            fwd_ms = timed(lambda: model(images), reps=10)
+        nms_ms = timed(lambda: decode(heads, points, ones), reps=10)
+        infer_ms = timed(lambda: infer(model, images, ones), reps=10)
+        peak = torch.cuda.max_memory_allocated()
+        d, lab, v = tta_fn(model, views)
+        check(d.shape == (1, pt.test.max_per_img, 5) and bool(torch.isfinite(d).all()),
+              f"{case}: TTA output {tuple(d.shape)}")
+        tta_ms = timed(lambda: tta_fn(model, views), reps=10)
+        print(f"inference {case}: {above} of {B * FEAT * FEAT * pt.num_classes} class scores "
+              f"above score_thr; valid detections per image {n_valid}; card vs cpu decode + "
+              f"NMS: {same}", flush=True)
+        print(f"inference {case} (B={B}, {IMG} px, bf16): forward ms={fwd_ms:.3f}, decode + "
+              f"NMS ms={nms_ms:.3f}, infer ms={infer_ms:.3f} ({B * 1e3 / infer_ms:.3f} imgs/s); "
+              f"TTA {IMG} px + flip (1 image, 2 views) ms={tta_ms:.3f}, valid {int(v.sum())}; "
+              f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+
+    # the eval: phase 7's train state as tools.train --work-dir writes it, through the CLI
+    ckpt_dir = os.path.join(ROOT, "build", "smoke_checkpoint")
+    path = os.path.join(ckpt_dir, "latest.pth")
+    save_checkpoint(state, path, meta=dict(step=state.step, num_images=12))
+    try:
+        t0 = time.perf_counter()
+        ap = test_cli.main([os.path.join(ROOT, HBB_CONFIG), path, "--synthetic-data", "8"])
+        host_s = time.perf_counter() - t0
+        check(np.isfinite(ap), f"eval mAP {ap}")
+        t0 = time.perf_counter()
+        out = os.path.join(ckpt_dir, "dense.npz")
+        dense_ap, stats = evaluate_detector(infer, dense, pt, cfg, synthetic_n=8, quiet=True,
+                                            out=out)
+        dense_s = time.perf_counter() - t0
+        n_dets = [len(a) for a in np.load(out).values()]
+    finally:
+        shutil.rmtree(ckpt_dir)
+    check(all(np.isfinite(x) for x in stats.values()), f"dense eval stats {stats}")
+    print(f"eval (8 images at {IMG} px): as trained, through tools.test main, mAP@0.25 "
+          f"{ap:.4f} in {host_s:.2f} s host time (the model's build and load included); "
+          f"dense ({int(np.mean(n_dets))} detections an image) through evaluate_detector, "
+          f"mAP@0.25 {dense_ap:.4f} in {dense_s:.2f} s host time", flush=True)
+    counts = {"roi_align": ra.launch_counts(), "roi_align_rotated": rr.launch_counts()}
+    check(not any(v for c in counts.values() for v in c.values()),
+          f"inference launched RoIAlign kernels: {counts}")
+    print(f"inference and eval launched no RoIAlign kernel: {counts}; class NMS chunk "
+          f"{nms_ops.CLASS_NMS_CHUNK}", flush=True)
 
 
 def build_all() -> None:
@@ -692,7 +831,7 @@ def build_all() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         logs = list(pool.map(lambda mod: mod.build(ptxas_verbose=True), (ra, rr)))
-    print(f"[2/7] build: {time.perf_counter() - t0:.1f} s -> {ra.LIBRARY}, {rr.LIBRARY} "
+    print(f"[2/8] build: {time.perf_counter() - t0:.1f} s -> {ra.LIBRARY}, {rr.LIBRARY} "
           f"(sm_90a)", flush=True)
     for mod, log in zip((ra, rr), logs):
         for line in log.splitlines():
@@ -725,23 +864,23 @@ def main():
     dev = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    print(f"[1/7] device: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
+    print(f"[1/8] device: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_all()
 
-    print("[3/7] K1 / K2 checks against the plain version (AI-TOD shapes)", flush=True)
+    print("[3/8] K1 / K2 checks against the plain version (AI-TOD shapes)", flush=True)
     cases = hbb_cases(dev)
     errs = merge_errs(check_family(HBB, dev, cases, seed=0),
                       check_channels(HBB, dev, cases[2], seed=5))
-    print("[4/7] K3 / K4 checks against the plain version (SODA-A shapes)", flush=True)
+    print("[4/8] K3 / K4 checks against the plain version (SODA-A shapes)", flush=True)
     cases = rotated_cases(dev)
     rerrs = merge_errs(check_family(ROT, dev, cases, seed=1),
                        check_channels(ROT, dev, cases[1], seed=6))
     del cases
     torch.cuda.empty_cache()
-    print("[5/7] kernel timing (bf16, main-path shapes)", flush=True)
+    print("[5/8] kernel timing (bf16, main-path shapes)", flush=True)
     bw, f32_rate = peaks(name)
     reg, member, cls_neg, cls_neg_clamp = mil_rois(2, dev)
     shapes = [("reg_bags", reg, member), ("cls+neg", cls_neg, cls_neg_clamp)]
@@ -754,7 +893,7 @@ def main():
     del shapes, rshapes
     del reg, member, cls_neg, cls_neg_clamp
     torch.cuda.empty_cache()
-    print("[6/7] port checks", flush=True)
+    print("[6/8] port checks", flush=True)
     for phase1 in (False, True):
         phase_port_check(dev, "aitodv2_point_teacher_0.py", phase1)
         phase_port_check(dev, "sodaa_point_teacher_1x.py", phase1)
@@ -762,16 +901,16 @@ def main():
     phase_synthesis_check(dev, "sodaa_point_teacher_1x.py")
     # the main paths run as in training: the default precision settings
     torch.backends.cudnn.allow_tf32 = True
-    print("[7/7] main paths", flush=True)
-    launches = phase_main_path(
-        dev, "configs/point_teacher/aitodv2_point_teacher_0.py", ra, rr,
+    print("[7/8] main paths", flush=True)
+    launches, hbb_state = phase_main_path(
+        dev, HBB_CONFIG, ra, rr,
         frozen=["backbone.conv1.weight", "backbone.layer1.0.conv2.weight",
                 "backbone.layer3.0.bn1.weight"],
         unchanged=[],
         trainable=["backbone.layer3.0.conv2.weight", "bbox_head.conv_cls.weight",
                    "bbox_head.shared_fcs_bag.0.0.weight"])
     torch.cuda.empty_cache()
-    rlaunches = phase_main_path(
+    rlaunches, _ = phase_main_path(
         dev, "configs/point_teacher/sodaa_point_teacher_1x.py", rr, ra,
         frozen=["backbone.conv1.weight", "backbone.bn1.weight",
                 "backbone.layer1.0.conv2.weight", "backbone.layer1.0.bn1.weight"],
@@ -780,6 +919,10 @@ def main():
                    "backbone.layer3.0.conv2.weight", "bbox_head.conv_angle.weight",
                    "bbox_head.cls_convs.0.gn.weight", "bbox_head.scale_angle.scale",
                    "bbox_head.shared_fcs_bag.0.0.weight"])
+    torch.cuda.empty_cache()
+    print("[8/8] inference and eval", flush=True)
+    phase_inference(dev, hbb_state)
+    del hbb_state
 
     kernels = kernel_rows(launches, errs, rows, "point_teacher_torch/csrc/roi_align.cu", (
         ("roi_align_fwd", "fwd", 0, "point_teacher_tpu/ops/roi_align_pallas.py:49"),

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of Point-Teacher (HBB, phase-2 training).
+"""PyTorch/CUDA port of Point-Teacher (training of both forks; the HBB
+fork's inference and eval).
 
 The JAX package `point_teacher_tpu` is the reference this package is held
 against, function by function. This package imports neither JAX nor the

@@ -5,10 +5,16 @@ The repository's config files import the JAX package, so the port does not
 execute them: it resolves a config path by its file stem to its own config
 dict, and applies `--cfg-options` dotted overrides to the result:
 
-  aitodv2_point_teacher_0 -> dict(pt=config_0pct())
-  aitodv2_point_teacher_{30,60,100} -> dict(pt=config_noisy(position=0.3 / 0.6 / 1.0))
+  aitodv2_point_teacher_0 -> dict(pt=config_0pct(), dataset=<AI-TOD-v2>)
+  aitodv2_point_teacher_{30,60,100} -> dict(pt=config_noisy(position=0.3 / 0.6 / 1.0),
+                                            dataset=<AI-TOD-v2>)
   sodaa_point_teacher_1x -> dict(pt=config_sodaa(), rotated=True,
                                  model=dict(num_classes=9, backbone_style="pytorch"))
+
+<AI-TOD-v2> is the config files' COCO-format val set (the eval reads it):
+its annotation file and image folder under data/AI-TOD-v2/, relative to the
+working directory (`--cfg-options dataset.val_ann=... dataset.val_img_prefix=...`
+moves them).
 """
 from __future__ import annotations
 
@@ -18,11 +24,17 @@ from typing import Any, Dict, List
 
 from .train.config import config_0pct, config_noisy, config_sodaa
 
+
+def _aitod():
+    return dict(val_ann="data/AI-TOD-v2/annotations/aitodv2_val.json",
+                val_img_prefix="data/AI-TOD-v2/val/")
+
+
 _CONFIGS = {
-    "aitodv2_point_teacher_0": lambda: dict(pt=config_0pct()),
-    "aitodv2_point_teacher_30": lambda: dict(pt=config_noisy(position=0.3)),
-    "aitodv2_point_teacher_60": lambda: dict(pt=config_noisy(position=0.6)),
-    "aitodv2_point_teacher_100": lambda: dict(pt=config_noisy(position=1.0)),
+    "aitodv2_point_teacher_0": lambda: dict(pt=config_0pct(), dataset=_aitod()),
+    "aitodv2_point_teacher_30": lambda: dict(pt=config_noisy(position=0.3), dataset=_aitod()),
+    "aitodv2_point_teacher_60": lambda: dict(pt=config_noisy(position=0.6), dataset=_aitod()),
+    "aitodv2_point_teacher_100": lambda: dict(pt=config_noisy(position=1.0), dataset=_aitod()),
     "sodaa_point_teacher_1x": lambda: dict(
         pt=config_sodaa(), rotated=True,
         model=dict(num_classes=9, backbone_style="pytorch")),

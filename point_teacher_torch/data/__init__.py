@@ -1,0 +1,2 @@
+from .coco import AITODDataset, CocoDetDataset  # noqa: F401
+from .loader import EvalLoader  # noqa: F401

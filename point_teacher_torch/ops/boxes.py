@@ -16,10 +16,18 @@ def xyxy_to_cxcywh(b: Tensor) -> Tensor:
     return torch.stack([(x1 + x2) * 0.5, (y1 + y2) * 0.5, x2 - x1, y2 - y1], -1)
 
 
-def distance2bbox(points: Tensor, distances: Tensor) -> Tensor:
-    """Decode (l, t, r, b) distances at `points` [..., 2] into xyxy boxes."""
-    return torch.stack([points[..., 0] - distances[..., 0], points[..., 1] - distances[..., 1],
-                        points[..., 0] + distances[..., 2], points[..., 1] + distances[..., 3]], -1)
+def distance2bbox(points: Tensor, distances: Tensor, max_shape=None) -> Tensor:
+    """Decode (l, t, r, b) distances at `points` [..., 2] into xyxy boxes,
+    clamped to [0, w] x [0, h] when `max_shape` (h, w) is given."""
+    x1 = points[..., 0] - distances[..., 0]
+    y1 = points[..., 1] - distances[..., 1]
+    x2 = points[..., 0] + distances[..., 2]
+    y2 = points[..., 1] + distances[..., 3]
+    if max_shape is not None:
+        h, w = max_shape
+        x1, x2 = x1.clamp(0, w), x2.clamp(0, w)
+        y1, y2 = y1.clamp(0, h), y2.clamp(0, h)
+    return torch.stack([x1, y1, x2, y2], -1)
 
 
 def bbox2distance(points: Tensor, bbox_xyxy: Tensor) -> Tensor:

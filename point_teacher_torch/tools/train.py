@@ -1,19 +1,23 @@
 """Training entry point of the port (counterpart of tools/train.py).
 
   python -m point_teacher_torch.tools.train <config.py> --synthetic-data N
-      --max-steps K [--seed S] [--cpu] [--cfg-options pt.burn_in_step=100 ...]
+      --max-steps K [--seed S] [--cpu] [--work-dir D]
+      [--cfg-options pt.burn_in_step=100 ...]
 
 Runs on the CUDA card unless --cpu is given; asked for CUDA without a card it
 raises. A config with `rotated` (sodaa_point_teacher_1x) trains the rotated
 detector with the rotated step on rotated boxes. Steps 0..burn_in_step run
 phase 1 (black-paper synthesis), later steps phase 2 (`is_phase1`). Data
-comes from fabricated batches (--synthetic-data); checkpoints, validation
-and the dataset loader are not ported yet.
+comes from fabricated batches (--synthetic-data). With --work-dir the whole
+train state is written to D/latest.pth when the steps end (evaluate it with
+point_teacher_torch.tools.test); resuming, validation during training and
+the dataset loader are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -78,6 +82,21 @@ def to_batch(arrays: dict, device) -> Batch:
     )
 
 
+def build_model(cfg: dict, seed: int, device, dtype=None):
+    """The detector of a config dict of config_io.load_config on `device`:
+    StudentFCOS, or StudentRotatedFCOS when the config says `rotated`;
+    weights drawn from `seed`; bf16 autocast on the card, f32 on the CPU
+    unless `dtype` is given."""
+    pt = cfg["pt"]
+    if dtype is None:
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    model_cls = StudentRotatedFCOS if cfg.get("rotated") else StudentFCOS
+    style = {k: v for k, v in cfg.get("model", {}).items() if k == "backbone_style"}
+    return model_cls(num_classes=pt.num_classes, num_stages=pt.num_stages,
+                     frozen_stages=pt.optim.frozen_stages, dtype=dtype, seed=seed,
+                     **style).to(device)
+
+
 def setup(cfg: dict, n_images: int, seed: int, device, dtype=None):
     """Model, train state and step function of a run of a config dict of
     config_io.load_config: StudentFCOS and the HBB step, or, when the
@@ -86,13 +105,7 @@ def setup(cfg: dict, n_images: int, seed: int, device, dtype=None):
     rotated = bool(cfg.get("rotated"))
     iters_per_epoch = max(n_images // pt.batch_size, 1)
     pt = pt._replace(optim=pt.optim._replace(iters_per_epoch=iters_per_epoch))
-    if dtype is None:
-        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model_cls = StudentRotatedFCOS if rotated else StudentFCOS
-    style = {k: v for k, v in cfg.get("model", {}).items() if k == "backbone_style"}
-    model = model_cls(num_classes=pt.num_classes, num_stages=pt.num_stages,
-                      frozen_stages=pt.optim.frozen_stages, dtype=dtype, seed=seed,
-                      **style).to(device)
+    model = build_model(cfg, seed, device, dtype)
     state = create_train_state(model, pt.optim, num_images=n_images, max_gt=pt.max_gt,
                                seed=seed)
     step_fn = build_rotated_train_step(pt) if rotated else build_train_step(pt)
@@ -129,6 +142,8 @@ def parse_args(argv=None):
     ap.add_argument("--synthetic-data", type=int, required=True, metavar="N_IMAGES",
                     help="train on N fabricated images (the dataset loader is not ported)")
     ap.add_argument("--max-steps", type=int, default=0, help="stop after N steps (0 = all)")
+    ap.add_argument("--work-dir", default=None,
+                    help="write the train state to WORK_DIR/latest.pth when the steps end")
     return ap.parse_args(argv)
 
 
@@ -138,6 +153,12 @@ def main(argv=None):
     device = resolve_device(args.cpu)
     state = train(cfg, args.synthetic_data, args.max_steps, args.seed, device)
     print(f"training done at step {state.step}")
+    if args.work_dir:
+        from ..utils.checkpoint import save_checkpoint
+
+        path = os.path.join(args.work_dir, "latest.pth")
+        save_checkpoint(state, path, meta=dict(step=state.step, num_images=args.synthetic_data))
+        print(f"checkpoint: {path}")
 
 
 if __name__ == "__main__":

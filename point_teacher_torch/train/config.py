@@ -1,8 +1,8 @@
 """Static training configuration (the port's own copy of
 point_teacher_tpu/train/config.py; defaults mirror the AI-TOD-v2 0% config).
 
-The fields both training phases read, HBB and OBB; the inference fields come
-with their slice.
+The fields both training phases read, HBB and OBB, and the test-time
+settings (`test`).
 """
 from __future__ import annotations
 
@@ -38,6 +38,13 @@ class OptimCfg(NamedTuple):
     iters_per_epoch: int = 5000
     frozen_stages: int = 1  # stem + layer1 (+ all FrozenBN regardless)
     bn_affine_trainable: bool = False  # OBB config: norm requires_grad=True
+
+
+class InferenceCfg(NamedTuple):
+    nms_pre: int = 3000
+    score_thr: float = 0.05
+    nms_iou: float = 0.5
+    max_per_img: int = 3000
 
 
 class PointTeacherConfig(NamedTuple):
@@ -84,6 +91,7 @@ class PointTeacherConfig(NamedTuple):
     dense: DenseLossCfg = DenseLossCfg()
     # runtime
     optim: OptimCfg = OptimCfg()
+    test: InferenceCfg = InferenceCfg()
     stride: int = 8
 
     @property
@@ -120,7 +128,8 @@ def _noisy_proposals():
 
 def config_sodaa(**overrides) -> PointTeacherConfig:
     """sodaa_fcos_pointteacher_1x.py equivalent: 9 classes, 1200 px patches,
-    burn_in 8000, centre points, top_k 3, trainable BN affine."""
+    burn_in 8000, centre points, top_k 3, rotated test NMS iou 0.1,
+    nms_pre / max_per_img 2000, trainable BN affine."""
     fine = FineProposalCfg(base_ratios=(1.0,), shake_ratio=None, min_scale=0.0, gen_num_neg=200)
     base = dict(
         num_classes=9,
@@ -135,6 +144,7 @@ def config_sodaa(**overrides) -> PointTeacherConfig:
             FineProposalCfg(base_ratios=(1.0, 1.3, 0.8), shake_ratio=None, min_scale=4.0),
         ),
         shape_list=SODAA_SHAPE_LIST,
+        test=InferenceCfg(nms_pre=2000, score_thr=0.05, nms_iou=0.1, max_per_img=2000),
         optim=OptimCfg(bn_affine_trainable=True),
     )
     base.update(overrides)

@@ -33,3 +33,11 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_package():
     assert len(FILES) > 20
     assert "point_teacher_torch/train/steps.py" in FILES
+
+
+@pytest.mark.parametrize("module", [
+    "inference", "apis", "data/__init__", "data/coco", "data/loader", "data/pipeline",
+    "evalx/__init__", "evalx/cocoeval", "evalx/native", "evalx/runner",
+    "utils/checkpoint", "tools/test"])
+def test_scan_covers_the_eval_modules(module):
+    assert f"point_teacher_torch/{module}.py" in FILES
