@@ -63,7 +63,29 @@ Phases:
    candidates). Then the eval: phase 7's train state written by
    save_checkpoint, as `tools.train --work-dir` writes it, evaluated by the
    test CLI's main on 8 fabricated 800 px images (the AP@0.25 table), and
-   the dense copy through evaluate_detector, each with its host time.
+   the dense copy through evaluate_detector, each with its host time;
+9. SODA-A inference and eval, with the launch counts set to 0 just before
+   and read just after (no RoIAlign kernel may launch): the SODA-A teacher
+   that phase 7 trained, at full width (1200 px, B=2, bf16, nms_pre 2000,
+   score_thr 0.05, IoU 0.1, max 2000: 18,000 class-expanded candidates an
+   image, 9 chunks of 2048, each chunk's IoU blocks in tiles of 256 rows),
+   as trained and dense (make_dense: every candidate passes, neighbours
+   suppress each other). For each: finite dets, scores descending, the
+   kept boxes of each class overlapping by IoU <= 0.1 (+ 1e-3, recomputed
+   on the card without the class offset), two runs bit-identical; the
+   forward, decode + NMS and the whole inference timed (CUDA events, median
+   of 10) and the peak memory; decode + NMS on the card against the CPU
+   from the same head outputs with nms_pre cut (one-shot: 1,800 candidates
+   an image, where any class score passes score_thr; dense also chunked:
+   2,160 in two chunks behind a full buffer of 150), as matched sets, a
+   row kept by one side only printed with its
+   IoU to the box that decided it and failing unless that IoU lies within
+   1e-4 of 0.1. Then the eval through the test CLI's main from phase 7's
+   SODA-A state written by save_checkpoint on 4 fabricated 1200 px images,
+   and, from the same state with the dense teacher, on a fabricated SODA-A
+   patch set under build/ (one 2000 px image split by data/patch.py into
+   four 1200 px patches, PNGs and jsons) with the dataset paths and
+   max_per_img 100 passed by --cfg-options.
 
 Any failure ends the run with a nonzero exit. The last line is the JSON
 contract line; the line before it is the card's name and power limit, and
@@ -73,6 +95,7 @@ check's), after the run's total seconds.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -89,22 +112,28 @@ from point_teacher_torch.config_io import apply_overrides, load_config
 from point_teacher_torch.core.proposals import fine_proposals, negative_proposals
 from point_teacher_torch.core.synthetic import (SynCfg, generate_black_paper_batch,
                                                 make_syn_draws)
+from point_teacher_torch.data.patch import patch_name, split_image
 from point_teacher_torch.data.pipeline import make_tta_views
+from point_teacher_torch.evalx.rgeometry import obb2poly_np
 from point_teacher_torch.evalx.runner import build_infer, evaluate_detector, synthetic_val_set
-from point_teacher_torch.inference import build_tta_inference_fn, get_bboxes
+from point_teacher_torch.inference import (build_tta_inference_fn, get_bboxes, get_rbboxes,
+                                           score_sigmoid)
 from point_teacher_torch.ops import nms as nms_ops
 from point_teacher_torch.ops.boxes import bbox_overlaps, grid_points
 from point_teacher_torch.ops import roi_align as ra
 from point_teacher_torch.ops import roi_align_rotated as rr
 from point_teacher_torch.ops.masks import rasterize_rboxes
+from point_teacher_torch.ops.rotated import IOU_TILE_ROWS, rbox_iou, rbox_iou_tiled
 from point_teacher_torch.tools import test as test_cli
 from point_teacher_torch.tools import train as cli
 from point_teacher_torch.tools.profile_step import make_dense
+from point_teacher_torch.train.rsteps import _flatten_rhead
 from point_teacher_torch.train.steps import _flatten_head, make_draws
 from point_teacher_torch.utils.checkpoint import save_checkpoint
 
 IMG, FEAT, CH, B, G, NEG = 800, 100, 256, 2, 100, 200
 HBB_CONFIG = "configs/point_teacher/aitodv2_point_teacher_0.py"
+SODAA_CONFIG = "configs/point_teacher/sodaa_point_teacher_1x.py"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXT_RATIOS = (1.0, 1.2, 1.3, 0.8, 0.7)
 RIMG, RFEAT, RWIN = 1200, 150, 16              # SODA-A
@@ -826,12 +855,257 @@ def phase_inference(dev, state) -> None:
           f"{nms_ops.CLASS_NMS_CHUNK}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# SODA-A inference and eval (phase 9)
+# --------------------------------------------------------------------------
+
+# card against CPU: (name, nms_pre, max_per_img), cut from 2000 / 2000 so
+# that the CPU's polygon clip stays within seconds: 1,800 class-expanded
+# candidates an image run one-shot; 2,160 run in two chunks (2048 and 112)
+# behind a buffer of 150 that the first chunk fills
+RCPU_CUTS = (("one-shot", 200, 2000), ("chunked", 240, 150))
+RNMS_MARGIN = 1e-4     # a row kept by one side only: its IoU must lie this close to 0.1
+RBOX_RTOL = 1e-5       # matched rows' boxes, relative to max(1, |value|)
+# the kept pairs' IoU is recomputed on the boxes without the class offset,
+# which moves cx to up to ~2e4 px in the NMS (f32 ulp 2e-3 px there)
+IOU_SLACK = 1e-3
+PATCH_MAX_PER_IMG = 100   # the patch eval's cut: its merge NMS is numpy, O(n^2) in Python
+
+
+def _rrows(d, lab, v):
+    """Image rows of rotated detections: {(label, score): [box, ...]}."""
+    rows = {}
+    for row, c in zip(d[v].tolist(), lab[v].tolist()):
+        rows.setdefault((c, row[5]), []).append(row[:5])
+    return rows
+
+
+def compare_rnms(case: str, card, cpu, max_out: int) -> str:
+    """Rotated decode + NMS of the card against the CPU's as matched sets,
+    per image: rows matched by label and score (bit-equal on both: the f64
+    sigmoid) with boxes within RBOX_RTOL. A row that only one side kept is
+    printed with its IoU to the box that decided it (the other side's kept
+    box of its class and higher score that overlaps it most); it fails
+    unless that IoU lies within RNMS_MARGIN of 0.1, or the other side's
+    buffer is full and the row scores below all of it (pushed out by a
+    near-threshold row). Returns a summary."""
+    (cd, cl, cv), (pd, pl, pv) = [x.cpu() for x in card], cpu
+    if all(torch.equal(a, b) for a, b in ((cd, pd), (cl, pl), (cv, pv))):
+        return "bit-identical, every row"
+    near, tail, bad, box_err = 0, 0, 0, 0.0
+    for b in range(cd.shape[0]):
+        sides = [(dd[b], ll[b], vv[b]) for dd, ll, vv in ((cd, cl, cv), (pd, pl, pv))]
+        rows = [_rrows(*sd) for sd in sides]
+        only = ([], [])
+        for key in set(rows[0]) | set(rows[1]):
+            a, c = rows[0].get(key, []), rows[1].get(key, [])
+            for box in a[len(c):]:
+                only[0].append((key, box))
+            for box in c[len(a):]:
+                only[1].append((key, box))
+            for x, y in zip(a, c):
+                err = max(abs(p - q) / max(1.0, abs(q)) for p, q in zip(x, y))
+                box_err = max(box_err, err)
+        for side in (0, 1):
+            od, ol, ov = sides[1 - side]
+            full = int(ov.sum()) == max_out
+            floor = float(od[ov][:, 5].min()) if int(ov.sum()) else float("inf")
+            for (label, score), box in only[side]:
+                peers = ov & (ol == label) & (od[:, 5] > score)
+                iou = (float(rbox_iou(torch.tensor([box]), od[peers][:, :5]).max())
+                       if bool(peers.any()) else 0.0)
+                if abs(iou - 0.1) <= RNMS_MARGIN:
+                    near += 1
+                    kind = "near IoU 0.1"
+                elif full and score <= floor:
+                    tail += 1
+                    kind = "below the other side's full buffer"
+                else:
+                    bad += 1
+                    kind = "NOT near IoU 0.1"
+                print(f"  {case} image {b}: only the {('card', 'cpu')[side]} kept label {label} "
+                      f"box {[round(x, 4) for x in box]} score {score:.9g}; IoU to the box that "
+                      f"decided it on the other side {iou:.7f} ({kind})", flush=True)
+    check(bad == 0 and (tail == 0 or near > 0) and box_err <= RBOX_RTOL,
+          f"{case}: the card's rotated NMS differs from the CPU's ({bad} rows not near IoU "
+          f"0.1, {tail} tail rows, {near} near, box error {box_err:.3e})")
+    return (f"matched sets; rows kept by one side only: {near} near IoU 0.1, {tail} below a "
+            f"full buffer; matched boxes within {box_err:.3e} (relative)")
+
+
+def check_rdets(case: str, dets, labels, valid) -> float:
+    """Finite dets, valid rows first with scores descending, and within each
+    class the kept boxes' pairwise IoU at most 0.1 + IOU_SLACK (recomputed
+    on the card). Returns the largest such IoU."""
+    check(bool(torch.isfinite(dets).all()), f"{case}: non-finite detections")
+    worst = 0.0
+    for b in range(dets.shape[0]):
+        n = int(valid[b].sum())
+        check(bool(valid[b, :n].all()), f"{case}: image {b}: valid rows not first")
+        s = dets[b, :n, 5]
+        check(bool((s[1:] <= s[:-1]).all()), f"{case}: image {b}: scores not descending")
+        if n > 1:
+            lab = labels[b, :n]
+            iou = rbox_iou_tiled(dets[b, :n, :5], dets[b, :n, :5])
+            same = (lab[:, None] == lab[None, :]) & ~torch.eye(n, dtype=torch.bool,
+                                                                 device=lab.device)
+            worst = max(worst, float(torch.where(same, iou, 0.0).max()))
+    check(worst <= 0.1 + IOU_SLACK, f"{case}: kept boxes of one class overlap by IoU {worst}")
+    return worst
+
+
+def write_sodaa_layout(root: str, seed: int = 0) -> dict:
+    """A SODA-A val set in the divData / rawData layout: one 2000 x 2000
+    original image (random pixels) with 60 rotated GTs of 8-40 px, split by
+    data/patch.py into four 1200 px patches (sizes (1200,), gaps (200,)),
+    written as PNG pixels under the patch names the dataset reads, each
+    patch's json with the GTs whose centre lies in it, translated, and the
+    original's json. Returns the config's dataset paths."""
+    from PIL import Image
+
+    r = np.random.RandomState(seed)
+    img = r.randint(0, 255, (2000, 2000, 3)).astype(np.uint8)
+    gts = np.concatenate([r.uniform(20, 1980, (60, 2)), r.uniform(8, 40, (60, 2)),
+                          r.uniform(-np.pi / 2, np.pi / 2, (60, 1))], -1)
+    labels = r.randint(0, 9, 60)
+    paths = {k: os.path.join(root, k) for k in ("ann", "img", "ori")}
+    for p in paths.values():
+        os.makedirs(p, exist_ok=True)
+
+    def write(path, boxes, labs):
+        polys = obb2poly_np(boxes).reshape(-1, 8).tolist()
+        with open(path, "w") as f:
+            json.dump(dict(annotations=[dict(poly=p, category_id=int(c))
+                                        for p, c in zip(polys, labs)]), f)
+
+    write(os.path.join(paths["ori"], "scene.json"), gts, labels)
+    for patch, (x0, y0) in split_image(img, (1200,), (200,)):
+        name = patch_name("scene.png", 1200, x0, y0)
+        Image.fromarray(patch).save(os.path.join(paths["img"], name), format="PNG")
+        h, w = patch.shape[:2]
+        inside = ((gts[:, 0] >= x0) & (gts[:, 0] < x0 + w) & (gts[:, 1] >= y0)
+                  & (gts[:, 1] < y0 + h))
+        write(os.path.join(paths["ann"], name.replace(".jpg", ".json")),
+              gts[inside] - [x0, y0, 0, 0, 0], labels[inside])
+    return dict(val_ann=paths["ann"], val_img_prefix=paths["img"], ori_val_ann=paths["ori"])
+
+
+def phase_rotated_inference(dev, state) -> None:
+    """Phase 9 (see the module docstring): the SODA-A teacher of `state`."""
+    ra.reset_launch_counts()
+    rr.reset_launch_counts()
+    cfg = load_config(SODAA_CONFIG)
+    pt = cfg["pt"]
+    check(pt.img_size == RIMG and pt.batch_size == B and pt.test.nms_pre == 2000
+          and pt.test.max_per_img == 2000 and pt.test.nms_iou == 0.1 and pt.num_classes == 9,
+          "SODA-A test config drifted")
+    m = pt.test.nms_pre * pt.num_classes
+    chunks = -(-m // nms_ops.ROTATED_CLASS_NMS_CHUNK)
+    infer = build_infer(pt, rotated=True)
+    batches, _ = synthetic_val_set(pt, B, True)
+    images = torch.as_tensor(batches[0], device=dev)
+    ones = torch.ones((B, 4), device=dev)
+    points = grid_points(RFEAT, RFEAT, pt.stride, device=dev)
+    dense = copy.deepcopy(state.teacher)
+    make_dense(dense)
+
+    def decode(heads, pts, scale, test=pt.test):
+        cls, bbox, angle, _ = heads
+        return get_rbboxes(cls, torch.cat([bbox, angle], -1), pts, scale, test)
+
+    for case, model in (("as trained", state.teacher), ("dense", dense)):
+        with torch.no_grad():
+            heads = _flatten_rhead(model(images)[0])
+        above = int((score_sigmoid(heads[0]) > pt.test.score_thr).sum())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first = decode(heads, points, ones)
+        second = decode(heads, points, ones)
+        check(all(torch.equal(a, c) for a, c in zip(first, second)),
+              f"{case}: two runs of decode + NMS differ")
+        worst = check_rdets(case, *first)
+        n_valid = first[2].sum(-1).tolist()
+        with torch.no_grad():
+            fwd_ms = timed(lambda: model(images), reps=10)
+        # decode + NMS ran twice above, and the forward's warm-up: no more
+        nms_ms = timed(lambda: decode(heads, points, ones), reps=10, warmup=0)
+        infer_ms = timed(lambda: infer(model, images, ones), reps=10, warmup=0)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"rotated inference {case}: {above} of {B * RFEAT * RFEAT * pt.num_classes} class "
+              f"scores above score_thr; {m} class-expanded candidates an image in {chunks} "
+              f"chunks of {nms_ops.ROTATED_CLASS_NMS_CHUNK} (IoU tiles of {IOU_TILE_ROWS} rows); "
+              f"valid detections per image {n_valid}; scores descending; largest IoU of two kept "
+              f"boxes of one class {worst:.6f}; two runs bit-identical", flush=True)
+        print(f"rotated inference {case} (B={B}, {RIMG} px, bf16): forward ms={fwd_ms:.3f}, "
+              f"decode + NMS ms={nms_ms:.3f}, infer ms={infer_ms:.3f} "
+              f"({B * 1e3 / infer_ms:.3f} imgs/s); peak memory {peak / 2**30:.2f} GiB", flush=True)
+        cpu_heads = [h.cpu() for h in heads]
+        for cut, nms_pre, max_out in RCPU_CUTS:
+            # the CPU's time (30-45 s a cut): the chunked cut runs on the
+            # dense case only, and a case with no candidate above score_thr
+            # (whose NMS keeps nothing) is not compared
+            if case == "as trained" and (cut == "chunked" or not above):
+                print(f"rotated inference {case}, {cut}: not compared on the CPU "
+                      f"({above} class scores above score_thr)", flush=True)
+                continue
+            test = pt.test._replace(nms_pre=nms_pre, max_per_img=max_out)
+            card = decode(heads, points, ones, test)
+            t0 = time.perf_counter()
+            cpu = decode(cpu_heads, points.cpu(), ones.cpu(), test)
+            cpu_s = time.perf_counter() - t0
+            same = compare_rnms(f"{case}, {cut}", card, cpu, max_out)
+            print(f"rotated inference {case}, {cut} (nms_pre {nms_pre}: {nms_pre * 9} "
+                  f"candidates an image, max_per_img {max_out}): valid per image "
+                  f"{card[2].sum(-1).tolist()}; card vs cpu decode + NMS: {same}; "
+                  f"cpu {cpu_s:.1f} s", flush=True)
+        del heads, cpu_heads, first, second
+
+    # the eval: phase 7's SODA-A train state as tools.train --work-dir writes
+    # it, and the same state with the dense teacher, whose detections give
+    # the patch set's merge NMS work to do
+    ckpt_dir = os.path.join(ROOT, "build", "smoke_rcheckpoint")
+    path = os.path.join(ckpt_dir, "latest.pth")
+    dense_path = os.path.join(ckpt_dir, "dense.pth")
+    meta = dict(step=state.step, num_images=12)
+    save_checkpoint(state, path, meta=meta)
+    save_checkpoint(dataclasses.replace(state, teacher=dense), dense_path, meta=meta)
+    config = os.path.join(ROOT, SODAA_CONFIG)
+    try:
+        t0 = time.perf_counter()
+        ap = test_cli.main([config, path, "--synthetic-data", "4"])
+        synth_s = time.perf_counter() - t0
+        check(np.isfinite(ap), f"SODA-A synthetic eval AP {ap}")
+        layout = write_sodaa_layout(os.path.join(ckpt_dir, "sodaa"))
+        out = os.path.join(ckpt_dir, "patches.npz")
+        t0 = time.perf_counter()
+        pap = test_cli.main([config, dense_path, "--out", out, "--cfg-options",
+                             *[f"dataset.{k}={v}" for k, v in layout.items()],
+                             f"pt.test.max_per_img={PATCH_MAX_PER_IMG}"])
+        patch_s = time.perf_counter() - t0
+        merged = [a.shape for a in np.load(out).values()]
+    finally:
+        shutil.rmtree(ckpt_dir)
+    check(np.isfinite(pap) and len(merged) == 1 and merged[0][1:] == (7,),
+          f"SODA-A patch eval: AP {pap}, merged {merged}")
+    print(f"rotated eval: 4 fabricated {RIMG} px images through tools.test main, AP .5:.95 "
+          f"{ap:.4f} in {synth_s:.2f} s host time (the model's build and load included); the "
+          f"patch set (one 2000 px image, 4 patches of 1200 px, 60 GTs) through tools.test "
+          f"main, the dense teacher, pt.test.max_per_img cut to {PATCH_MAX_PER_IMG} (the "
+          f"numpy merge NMS), "
+          f"AP .5:.95 {pap:.4f}, {merged[0][0]} merged detections, in {patch_s:.2f} s host "
+          f"time", flush=True)
+    counts = {"roi_align": ra.launch_counts(), "roi_align_rotated": rr.launch_counts()}
+    check(not any(v for c in counts.values() for v in c.values()),
+          f"rotated inference launched RoIAlign kernels: {counts}")
+    print(f"rotated inference and eval launched no RoIAlign kernel: {counts}", flush=True)
+
+
 def build_all() -> None:
     """nvcc for both sources at once (one process each), with -Xptxas -v."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         logs = list(pool.map(lambda mod: mod.build(ptxas_verbose=True), (ra, rr)))
-    print(f"[2/8] build: {time.perf_counter() - t0:.1f} s -> {ra.LIBRARY}, {rr.LIBRARY} "
+    print(f"[2/9] build: {time.perf_counter() - t0:.1f} s -> {ra.LIBRARY}, {rr.LIBRARY} "
           f"(sm_90a)", flush=True)
     for mod, log in zip((ra, rr), logs):
         for line in log.splitlines():
@@ -864,23 +1138,23 @@ def main():
     dev = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    print(f"[1/8] device: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
+    print(f"[1/9] device: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_all()
 
-    print("[3/8] K1 / K2 checks against the plain version (AI-TOD shapes)", flush=True)
+    print("[3/9] K1 / K2 checks against the plain version (AI-TOD shapes)", flush=True)
     cases = hbb_cases(dev)
     errs = merge_errs(check_family(HBB, dev, cases, seed=0),
                       check_channels(HBB, dev, cases[2], seed=5))
-    print("[4/8] K3 / K4 checks against the plain version (SODA-A shapes)", flush=True)
+    print("[4/9] K3 / K4 checks against the plain version (SODA-A shapes)", flush=True)
     cases = rotated_cases(dev)
     rerrs = merge_errs(check_family(ROT, dev, cases, seed=1),
                        check_channels(ROT, dev, cases[1], seed=6))
     del cases
     torch.cuda.empty_cache()
-    print("[5/8] kernel timing (bf16, main-path shapes)", flush=True)
+    print("[5/9] kernel timing (bf16, main-path shapes)", flush=True)
     bw, f32_rate = peaks(name)
     reg, member, cls_neg, cls_neg_clamp = mil_rois(2, dev)
     shapes = [("reg_bags", reg, member), ("cls+neg", cls_neg, cls_neg_clamp)]
@@ -893,7 +1167,7 @@ def main():
     del shapes, rshapes
     del reg, member, cls_neg, cls_neg_clamp
     torch.cuda.empty_cache()
-    print("[6/8] port checks", flush=True)
+    print("[6/9] port checks", flush=True)
     for phase1 in (False, True):
         phase_port_check(dev, "aitodv2_point_teacher_0.py", phase1)
         phase_port_check(dev, "sodaa_point_teacher_1x.py", phase1)
@@ -901,7 +1175,7 @@ def main():
     phase_synthesis_check(dev, "sodaa_point_teacher_1x.py")
     # the main paths run as in training: the default precision settings
     torch.backends.cudnn.allow_tf32 = True
-    print("[7/8] main paths", flush=True)
+    print("[7/9] main paths", flush=True)
     launches, hbb_state = phase_main_path(
         dev, HBB_CONFIG, ra, rr,
         frozen=["backbone.conv1.weight", "backbone.layer1.0.conv2.weight",
@@ -910,8 +1184,8 @@ def main():
         trainable=["backbone.layer3.0.conv2.weight", "bbox_head.conv_cls.weight",
                    "bbox_head.shared_fcs_bag.0.0.weight"])
     torch.cuda.empty_cache()
-    rlaunches, _ = phase_main_path(
-        dev, "configs/point_teacher/sodaa_point_teacher_1x.py", rr, ra,
+    rlaunches, sodaa_state = phase_main_path(
+        dev, SODAA_CONFIG, rr, ra,
         frozen=["backbone.conv1.weight", "backbone.bn1.weight",
                 "backbone.layer1.0.conv2.weight", "backbone.layer1.0.bn1.weight"],
         unchanged=["backbone.layer3.0.bn1.running_mean", "backbone.layer3.0.bn1.running_var"],
@@ -920,9 +1194,13 @@ def main():
                    "bbox_head.cls_convs.0.gn.weight", "bbox_head.scale_angle.scale",
                    "bbox_head.shared_fcs_bag.0.0.weight"])
     torch.cuda.empty_cache()
-    print("[8/8] inference and eval", flush=True)
+    print("[8/9] inference and eval", flush=True)
     phase_inference(dev, hbb_state)
     del hbb_state
+    torch.cuda.empty_cache()
+    print("[9/9] SODA-A inference and eval", flush=True)
+    phase_rotated_inference(dev, sodaa_state)
+    del sodaa_state
 
     kernels = kernel_rows(launches, errs, rows, "point_teacher_torch/csrc/roi_align.cu", (
         ("roi_align_fwd", "fwd", 0, "point_teacher_tpu/ops/roi_align_pallas.py:49"),

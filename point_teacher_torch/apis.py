@@ -1,7 +1,7 @@
-"""High-level inference API, HBB (counterpart of point_teacher_tpu/apis.py):
+"""High-level inference API (counterpart of point_teacher_tpu/apis.py):
 init_detector(config, checkpoint) and inference_detector(detector, img),
-which returns per-class numpy arrays like the reference's bbox2result.
-The rotated (SODA-A) fork's API is not ported yet.
+which returns per-class numpy arrays like the reference's bbox2result (HBB)
+and rbbox2result (rotated, SODA-A).
 """
 from __future__ import annotations
 
@@ -13,14 +13,17 @@ import torch
 
 class Detector:
     """The module to run (the teacher's weights, or the student's), its
-    inference function, class names, canvas size and test settings."""
+    inference function, class names, canvas size, test settings and
+    whether it is the rotated detector."""
 
-    def __init__(self, model: torch.nn.Module, infer_fn, classes, img_size: int, test_cfg):
+    def __init__(self, model: torch.nn.Module, infer_fn, classes, img_size: int, test_cfg,
+                 rotated: bool = False):
         self.model = model
         self.infer_fn = infer_fn
         self.CLASSES = classes
         self.img_size = img_size
         self.test_cfg = test_cfg
+        self.rotated = rotated
         self.device = next(model.parameters()).device
         self._tta_key = None
         self._tta_fn = None
@@ -33,34 +36,32 @@ def init_detector(config_path: str, checkpoint: Optional[str] = None,
     the seeded random init without one. Runs on the card unless `device`
     says otherwise (raises without CUDA)."""
     from .config_io import load_config
-    from .data.coco import AITODDataset
-    from .inference import build_inference_fn
+    from .data import AITODDataset, SODAADataset
+    from .evalx.runner import build_infer
     from .tools.train import build_model, resolve_device
     from .utils.checkpoint import load_weights
 
     cfg = load_config(config_path)
-    if cfg.get("rotated"):
-        raise NotImplementedError("the rotated (SODA-A) detector API is not ported yet "
-                                  "(ROADMAP.md queue 1 item 3)")
-    pt = cfg["pt"]
+    pt, rotated = cfg["pt"], bool(cfg.get("rotated"))
     dev = resolve_device(False) if device is None else torch.device(device)
     model = build_model(cfg, 0, dev)
     if checkpoint:
         load_weights(model, checkpoint, "teacher" if use_teacher else "student")
-    infer = build_inference_fn(pt.test, pt.img_size, pt.stride)
-    return Detector(model, infer, AITODDataset.CLASSES, pt.img_size, pt.test)
+    classes = SODAADataset.CLASSES if rotated else AITODDataset.CLASSES
+    return Detector(model, build_infer(pt, rotated), classes, pt.img_size, pt.test, rotated)
 
 
 def _per_class(detector: Detector, dets, labels, valid) -> List[np.ndarray]:
     dets, labels, valid = (x[0].cpu().numpy() for x in (dets, labels, valid))
     dets, labels = dets[valid], labels[valid]
-    return [dets[labels == c].reshape(-1, 5) for c in range(len(detector.CLASSES))]
+    return [dets[labels == c].reshape(-1, dets.shape[-1]) for c in range(len(detector.CLASSES))]
 
 
 def inference_detector(detector: Detector, img: Union[str, np.ndarray]) -> List[np.ndarray]:
     """One image (a path or an [H, W, 3] array of 0-255 pixels), resized
     keep-ratio to the canvas: per-class [K, 5] arrays (x1, y1, x2, y2,
-    score) in the image's own pixels."""
+    score), rotated [K, 6] (cx, cy, w, h, a, score), in the image's own
+    pixels. Like the JAX package's, it does not normalise the pixels."""
     from .data.pipeline import load_image, pad_to_canvas, resize_keep_ratio
 
     if isinstance(img, str):
@@ -70,10 +71,10 @@ def inference_detector(detector: Detector, img: Union[str, np.ndarray]) -> List[
     shape = np.asarray(img.shape[:2], np.float32)
     img = pad_to_canvas(img, detector.img_size)
     dev = detector.device
-    out = detector.infer_fn(detector.model, torch.as_tensor(img[None], device=dev),
-                            torch.as_tensor(scale[None], device=dev),
-                            torch.as_tensor(shape[None], device=dev))
-    return _per_class(detector, *out)
+    args = [torch.as_tensor(img[None], device=dev), torch.as_tensor(scale[None], device=dev)]
+    if not detector.rotated:   # the rotated decode clamps to no image shape
+        args.append(torch.as_tensor(shape[None], device=dev))
+    return _per_class(detector, *detector.infer_fn(detector.model, *args))
 
 
 def inference_detector_tta(detector: Detector, img: Union[str, np.ndarray], scales=None,
@@ -82,10 +83,14 @@ def inference_detector_tta(detector: Detector, img: Union[str, np.ndarray], scal
     resized keep-ratio, with a horizontally flipped copy when `flip`, every
     view's top-k mapped back and merged by one NMS. `scales`: square canvas
     sizes, the detector's own by default. Returns inference_detector's
-    per-class arrays."""
+    per-class arrays. HBB only, as in the JAX package (the reference's
+    rotated configs run single-scale without flip)."""
     from .data.pipeline import load_image, make_tta_views
     from .inference import build_tta_inference_fn
 
+    if detector.rotated:
+        raise NotImplementedError("TTA covers the HBB path (the reference's rotated configs "
+                                  "run single-scale, flip=False)")
     if isinstance(img, str):
         img = load_image(img)
     img = np.asarray(img, np.float32)

@@ -8,13 +8,17 @@ dict, and applies `--cfg-options` dotted overrides to the result:
   aitodv2_point_teacher_0 -> dict(pt=config_0pct(), dataset=<AI-TOD-v2>)
   aitodv2_point_teacher_{30,60,100} -> dict(pt=config_noisy(position=0.3 / 0.6 / 1.0),
                                             dataset=<AI-TOD-v2>)
-  sodaa_point_teacher_1x -> dict(pt=config_sodaa(), rotated=True,
+  sodaa_point_teacher_1x -> dict(pt=config_sodaa(), rotated=True, dataset=<SODA-A>,
                                  model=dict(num_classes=9, backbone_style="pytorch"))
 
 <AI-TOD-v2> is the config files' COCO-format val set (the eval reads it):
 its annotation file and image folder under data/AI-TOD-v2/, relative to the
 working directory (`--cfg-options dataset.val_ann=... dataset.val_img_prefix=...`
-moves them).
+moves them). <SODA-A> is the SODA-A config file's dataset dict: the
+per-patch annotation and image folders of the divData layout (`val_ann`,
+`val_img_prefix`), the original images' annotations (`ori_val_ann`) that the
+patch-merge eval scores against, and the ImageNet normalisation
+(`img_norm`).
 """
 from __future__ import annotations
 
@@ -30,13 +34,26 @@ def _aitod():
                 val_img_prefix="data/AI-TOD-v2/val/")
 
 
+def _sodaa():
+    return dict(
+        type="SODAADataset",
+        train_ann="data/SODA-A/divData/train/Annotations/",
+        train_img_prefix="data/SODA-A/divData/train/Images/",
+        val_ann="data/SODA-A/divData/val/Annotations/",
+        val_img_prefix="data/SODA-A/divData/val/Images/",
+        ori_val_ann="data/SODA-A/rawData/val/Annotations",
+        img_norm=dict(mean=(123.675, 116.28, 103.53), std=(58.395, 57.12, 57.375),
+                      to_rgb=True),
+    )
+
+
 _CONFIGS = {
     "aitodv2_point_teacher_0": lambda: dict(pt=config_0pct(), dataset=_aitod()),
     "aitodv2_point_teacher_30": lambda: dict(pt=config_noisy(position=0.3), dataset=_aitod()),
     "aitodv2_point_teacher_60": lambda: dict(pt=config_noisy(position=0.6), dataset=_aitod()),
     "aitodv2_point_teacher_100": lambda: dict(pt=config_noisy(position=1.0), dataset=_aitod()),
     "sodaa_point_teacher_1x": lambda: dict(
-        pt=config_sodaa(), rotated=True,
+        pt=config_sodaa(), rotated=True, dataset=_sodaa(),
         model=dict(num_classes=9, backbone_style="pytorch")),
 }
 

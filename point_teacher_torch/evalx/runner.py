@@ -1,11 +1,16 @@
 """Evaluation runner of the port (counterpart of
-point_teacher_tpu/evalx/runner.py, HBB): teacher inference over a val set,
-then AI-TOD COCO-style metrics (AP at IoU 0.25, vt/t/s/m buckets, oLRP).
+point_teacher_tpu/evalx/runner.py): teacher inference over a val set, then
+the metrics.
 
-Three HBB branches: a COCO-format dataset on disk (the config's
-`dataset.val_ann` / `val_img_prefix`), a fabricated val set
-(`synthetic_n`), and multi-scale + flip test-time augmentation over either.
-The rotated (SODA-A) eval and `show_dir` are not ported yet.
+HBB (AI-TOD COCO-style metrics: AP at IoU 0.25, vt/t/s/m buckets, oLRP):
+a COCO-format dataset on disk (the config's `dataset.val_ann` /
+`val_img_prefix`), a fabricated val set (`synthetic_n`), and multi-scale +
+flip test-time augmentation over either. Rotated (SODA-A rotated COCO-style
+metrics: AP over IoU .5:.95, the eS/rS/gS/Normal buckets, AR@20000): the
+patch dataset (per-patch inference; each patch's detections translated
+into its original image and merged there by a per-class rotated NMS;
+scored against the original images' annotations, `dataset.ori_val_ann`)
+and a fabricated val set. `show_dir` is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,16 +23,18 @@ import torch
 from . import native
 from .cocoeval import COCOStyleEval
 
+HBB_HEADER = "AI-TOD COCO-style metrics (IoU 0.25)"
+ROTATED_HEADER = "SODA-A rotated metrics (AP over IoU .5:.95)"
+
 
 def build_infer(pt, rotated: bool = False):
     """The inference function of a config: infer(model, images,
-    scale_factors, img_shapes=None)."""
-    if rotated:
-        raise NotImplementedError("the rotated (SODA-A) inference is not ported yet "
-                                  "(ROADMAP.md queue 1 item 3)")
-    from ..inference import build_inference_fn
+    scale_factors, img_shapes=None), or, rotated, infer(model, images,
+    scale_factors)."""
+    from ..inference import build_inference_fn, build_rotated_inference_fn
 
-    return build_inference_fn(pt.test, pt.img_size, pt.stride)
+    build = build_rotated_inference_fn if rotated else build_inference_fn
+    return build(pt.test, pt.img_size, pt.stride)
 
 
 def synthetic_val_set(pt, n: int, rotated: bool, seed: int = 0):
@@ -57,10 +64,65 @@ def synthetic_val_set(pt, n: int, rotated: bool, seed: int = 0):
     return batches, gt
 
 
-def _kept(d, l, v, b):
-    """Image b's valid detections as numpy (boxes [K, 4], scores [K], labels [K])."""
+def _kept(d, l, v, b, width: int = 4):
+    """Image b's valid detections as numpy (boxes [K, width], scores [K],
+    labels [K]); width 4 (x1, y1, x2, y2) or 5 (cx, cy, w, h, a)."""
     keep = v[b]
-    return d[b, keep, :4], d[b, keep, 4], l[b, keep]
+    return d[b, keep, :width], d[b, keep, width], l[b, keep]
+
+
+def _patch_detections(infer, model, pt, cfg: Dict, tensor):
+    """The rotated dataset branch: per-patch inference over the config's
+    SODA-A patch set, each patch's detections translated into its original
+    image and merged there by a per-class rotated NMS. Returns (gt of the
+    original images, detections per original image)."""
+    from ..data import EvalLoader, SODAADataset
+    from .sodaa import merge_patch_detections
+
+    dcfg = cfg["dataset"]
+    ds = SODAADataset(dcfg["val_ann"], dcfg["val_img_prefix"],
+                      ori_ann_folder=dcfg.get("ori_val_ann"))
+    loader = EvalLoader(ds, pt.batch_size, pt.img_size, img_norm=dcfg.get("img_norm"))
+    names, patch_dets = [], []
+    for idxs, imgs, scales, _shapes in loader:
+        d, l, v = (x.cpu().numpy() for x in infer(model, tensor(imgs), tensor(scales)))
+        names += [ds.infos[i]["filename"] for i in idxs]
+        patch_dets += [_kept(d, l, v, b, 5) for b in range(len(idxs))]
+    merged = merge_patch_detections(names, patch_dets, pt.num_classes)
+    gt = ds.ori_gt()
+    empty = (np.zeros((0, 5), np.float32), np.zeros(0), np.zeros(0))
+    return gt, [merged.get(name.rsplit(".", 1)[0], empty) for name in gt["img_ids"]]
+
+
+def _tta_detections(model, pt, cfg: Dict, synthetic_n: int, tta: Dict, tensor):
+    """The HBB multi-scale + flip branch: each image's views merged by one
+    NMS. Returns (gt, detections per image, the header's note)."""
+    from ..data.pipeline import make_tta_views
+    from ..inference import build_tta_inference_fn
+
+    scales = tuple(int(s) for s in tta["scales"])
+    flip = bool(tta.get("flip", True))
+    canvases = [s for s in scales for _ in range(2 if flip else 1)]
+    tta_fn = build_tta_inference_fn(pt.test, canvases, pt.stride)
+    norm = cfg.get("dataset", {}).get("img_norm")
+    if synthetic_n:
+        batches, gt = synthetic_val_set(pt, synthetic_n, False)
+        imgs_iter = (img[b] for img in batches for b in range(img.shape[0]))
+    else:
+        from ..data import AITODDataset
+        from ..data.pipeline import load_image
+
+        ds = AITODDataset(cfg["dataset"]["val_ann"], cfg["dataset"]["val_img_prefix"],
+                          filter_empty=False)
+        gt = ds.coco_gt()
+        imgs_iter = (load_image(ds.image_path(i)) for i in range(len(ds)))
+    dets_per_img = []
+    for img_np in imgs_iter:
+        views = [{k: tensor(v) for k, v in view.items()} for view in
+                 make_tta_views(np.asarray(img_np, np.float32), scales, flip, img_norm=norm)]
+        d, l, v = (x.cpu().numpy() for x in tta_fn(model, views))
+        dets_per_img.append(_kept(d, l, v, 0))
+    return gt, dets_per_img, f", TTA scales={list(scales)} flip={flip}"
 
 
 def evaluate_detector(
@@ -76,57 +138,44 @@ def evaluate_detector(
     tta: Optional[Dict] = None,
 ) -> Tuple[float, Dict[str, float]]:
     """Run val-set inference of `model` (the teacher, or the student) on its
-    device, then the metrics. Returns (headline mAP, stats dict).
+    device, then the metrics. Returns (headline AP, stats dict): HBB
+    stats["mAP"] (AP at IoU 0.25); rotated stats["AP"] (AP over IoU
+    .5:.95), where the JAX runner returns stats.get("mAP", 0.0), a key that
+    sodaa_evaluate never writes, so that its rotated headline is always 0.0.
 
     infer: build_infer's function. tta: dict(scales=(800, ...), flip=bool)
-    switches to multi-scale + flip test-time augmentation, each image's
-    views merged by one NMS (`infer` is not used then). out: write the
-    detections to an npz, one [K, 6] array (box, score, label) an image."""
-    if rotated:
-        raise NotImplementedError("the rotated (SODA-A) eval is not ported yet "
-                                  "(ROADMAP.md queue 1 item 3)")
+    switches the HBB path to multi-scale + flip test-time augmentation
+    (`infer` is not used then); rotated, it raises, as the JAX test CLI
+    does (the reference's rotated configs run single-scale). out: write the
+    detections to an npz, one [K, 6] array (box, score, label) an image,
+    [K, 7] rotated (for the patch set: an original image's merged
+    detections)."""
     if show_dir:
         raise NotImplementedError("show_dir needs utils/visualize.py, which is not ported "
                                   "yet (ROADMAP.md queue 5)")
+    if rotated and tta is not None:
+        raise ValueError("TTA covers the HBB path only (the reference's rotated configs run "
+                         "single-scale without flip)")
     dev = next(model.parameters()).device
 
     def tensor(x):
         return torch.as_tensor(np.asarray(x), device=dev)
 
-    header = "AI-TOD COCO-style metrics (IoU 0.25)"
-    dets_per_img = []
+    header = ROTATED_HEADER if rotated else HBB_HEADER
     if tta is not None:
-        from ..data.pipeline import make_tta_views
-        from ..inference import build_tta_inference_fn
-
-        scales = tuple(int(s) for s in tta["scales"])
-        flip = bool(tta.get("flip", True))
-        canvases = [s for s in scales for _ in range(2 if flip else 1)]
-        tta_fn = build_tta_inference_fn(pt.test, canvases, pt.stride)
-        norm = cfg.get("dataset", {}).get("img_norm")
-        if synthetic_n:
-            batches, gt = synthetic_val_set(pt, synthetic_n, rotated)
-            imgs_iter = (img[b] for img in batches for b in range(img.shape[0]))
-        else:
-            from ..data import AITODDataset
-            from ..data.pipeline import load_image
-
-            ds = AITODDataset(cfg["dataset"]["val_ann"], cfg["dataset"]["val_img_prefix"],
-                              filter_empty=False)
-            gt = ds.coco_gt()
-            imgs_iter = (load_image(ds.image_path(i)) for i in range(len(ds)))
-        for img_np in imgs_iter:
-            views = [{k: tensor(v) for k, v in view.items()} for view in
-                     make_tta_views(np.asarray(img_np, np.float32), scales, flip, img_norm=norm)]
-            d, l, v = (x.cpu().numpy() for x in tta_fn(model, views))
-            dets_per_img.append(_kept(d, l, v, 0))
-        header += f", TTA scales={list(scales)} flip={flip}"
+        gt, dets_per_img, note = _tta_detections(model, pt, cfg, synthetic_n, tta, tensor)
+        header += note
     elif synthetic_n:
         batches, gt = synthetic_val_set(pt, synthetic_n, rotated)
+        dets_per_img = []
         for img in batches:
             d, l, v = (x.cpu().numpy() for x in
                        infer(model, tensor(img), torch.ones((img.shape[0], 4), device=dev)))
-            dets_per_img += [_kept(d, l, v, b) for b in range(img.shape[0])]
+            dets_per_img += [_kept(d, l, v, b, 5 if rotated else 4)
+                             for b in range(img.shape[0])]
+    elif rotated:
+        gt, dets_per_img = _patch_detections(infer, model, pt, cfg, tensor)
+        header += ", patches merged per original image"
     else:
         from ..data import AITODDataset, EvalLoader
 
@@ -134,6 +183,7 @@ def evaluate_detector(
                           filter_empty=False)
         loader = EvalLoader(ds, pt.batch_size, pt.img_size,
                             img_norm=cfg["dataset"].get("img_norm"))
+        dets_per_img = []
         for idxs, imgs, scales, shapes in loader:
             d, l, v = (x.cpu().numpy() for x in
                        infer(model, tensor(imgs), tensor(scales), tensor(shapes)))
@@ -147,14 +197,24 @@ def evaluate_detector(
             for i, (d, s, l) in enumerate(dets_per_img)
         })
 
-    ev = COCOStyleEval(gt, dets_per_img)
-    stats = ev.evaluate()
+    if rotated:
+        from .sodaa import sodaa_evaluate
+
+        stats = sodaa_evaluate(gt, dets_per_img)
+        headline, per_class = stats["AP"], stats["per_class"]
+        engine = "rotated IoU and merge NMS"
+    else:
+        ev = COCOStyleEval(gt, dets_per_img)
+        stats = ev.evaluate()
+        headline, per_class = stats.get("mAP", 0.0), ev.per_class_ap
+        engine = "greedy matching"
     if not quiet:
-        matcher = "native ccore/libptteval.so" if native.available() else "numpy"
-        print(f"\n--- {header} ---\n(greedy matching: {matcher})")
+        lib = "native ccore/libptteval.so" if native.available() else "numpy"
+        print(f"\n--- {header} ---\n({engine}: {lib})")
         for k, v in stats.items():
-            print(f"{k:>24s}: {v:.4f}")
+            if k != "per_class":
+                print(f"{k:>24s}: {v:.4f}")
         print("\nper-class AP:")
-        for cls, ap in ev.per_class_ap.items():
+        for cls, ap in per_class.items():
             print(f"{cls:>24s}: {ap:.4f}")
-    return float(stats.get("mAP", 0.0)), stats
+    return float(headline), stats

@@ -1,15 +1,18 @@
-"""Test-time inference of the teacher, HBB (counterpart of
-point_teacher_tpu/inference.py): forward -> per-image top-k by
+"""Test-time inference of the teacher (counterpart of
+point_teacher_tpu/inference.py). HBB: forward -> per-image top-k by
 max(score x centerness) -> decode -> multiclass NMS, and the multi-scale +
 flip test-time augmentation that merges every view's top-k by one NMS.
+Rotated (SODA-A): forward -> per-image top-k by the raw max class score ->
+DistanceAnglePointCoder decode -> rotated multiclass NMS.
 
 Single stride-8 level. Everything is batched over the images: one forward,
 one batched NMS (one host sync a chunk of candidates, not one an image).
-Returns fixed-shape padded detections: dets [B, max_per_img, 5], labels,
-valid. The functions that build_inference_fn and build_tta_inference_fn
-return take the module to run (the teacher, or the student) as their first
-argument and run it under no_grad, inside the profiler ranges
-`pt.infer/forward` and `pt.infer/nms`.
+Returns fixed-shape padded detections: dets [B, max_per_img, 5] (rotated:
+6), labels, valid. The functions that build_inference_fn,
+build_rotated_inference_fn and build_tta_inference_fn return take the
+module to run (the teacher, or the student) as their first argument and run
+it under no_grad, inside the profiler ranges `pt.infer/forward` and
+`pt.infer/nms`.
 """
 from __future__ import annotations
 
@@ -19,8 +22,10 @@ import torch
 from torch.autograd.profiler import record_function
 
 from .ops.boxes import distance2bbox, grid_points
-from .ops.nms import multiclass_nms, stable_topk
+from .ops.nms import multiclass_nms, multiclass_nms_rotated, stable_topk
+from .ops.rotated import distance_angle_decode
 from .train.config import InferenceCfg
+from .train.rsteps import _flatten_rhead
 from .train.steps import _flatten_head
 
 Tensor = torch.Tensor
@@ -111,6 +116,55 @@ def build_inference_fn(cfg: InferenceCfg, img_size: int, stride: int = 8):
             with record_function("pt.infer/nms"):
                 return get_bboxes(*_flatten_head(outs), points, hw, scale_factors, cfg,
                                   img_shapes=img_shapes)
+
+    return infer
+
+
+def get_rbboxes(cls_logits: Tensor, pred5: Tensor, points: Tensor, scale_factors: Tensor,
+                cfg: InferenceCfg):
+    """Rotated decode + NMS of a batch: cls_logits [B, P, C], pred5 [B, P, 5]
+    (l, t, r, b px, angle), points [P, 2], scale_factors [B, 4] (w, h, w, h).
+
+    The reference's rotated rules: nms_pre ranks by the raw max class score
+    (no centerness), the NMS takes no score factors, (cx, cy, w, h) are
+    divided by the scale factor and the angle is not, and nothing is clamped
+    to the image. Returns multiclass_nms_rotated's (dets [B, N, 6], labels,
+    valid)."""
+    scores = score_sigmoid(cls_logits)
+    k = min(cfg.nms_pre, scores.shape[1])
+    _, topk = stable_topk(scores.amax(-1), k)
+    rb = distance_angle_decode(points[topk], _gather(pred5, topk))
+    rb = torch.cat([rb[..., :4] / scale_factors[:, None, :], rb[..., 4:]], -1)
+    return multiclass_nms_rotated(rb, _gather(scores, topk), cfg.score_thr, cfg.nms_iou,
+                                  cfg.max_per_img)
+
+
+def get_rbboxes_single(cls_logits: Tensor, pred5: Tensor, centerness: Tensor, points: Tensor,
+                       scale_factor: Tensor, cfg: InferenceCfg):
+    """get_rbboxes of one image: [P, C], [P, 5], scale_factor [4] -> (dets
+    [N, 6], labels [N], valid [N]). `centerness` [P] is taken, as the
+    reference's signature takes it, and not used."""
+    del centerness
+    out = get_rbboxes(cls_logits[None], pred5[None], points, scale_factor[None], cfg)
+    return tuple(x[0] for x in out)
+
+
+def build_rotated_inference_fn(cfg: InferenceCfg, img_size: int, stride: int = 8):
+    """infer(model, images [B, S, S, 3], scale_factors [B, 4]) -> (dets
+    [B, N, 6] (cx, cy, w, h, a, score), labels [B, N], valid [B, N]) of the
+    rotated detector."""
+
+    @torch.no_grad()
+    def infer(model, images: Tensor, scale_factors: Tensor):
+        points = grid_points(img_size // stride, img_size // stride, stride,
+                             device=images.device)
+        with record_function("pt.infer"):
+            with record_function("pt.infer/forward"):
+                outs, _ = model(images)
+            with record_function("pt.infer/nms"):
+                cls, bbox, angle, _ = _flatten_rhead(outs)
+                return get_rbboxes(cls, torch.cat([bbox, angle], -1), points, scale_factors,
+                                   cfg)
 
     return infer
 

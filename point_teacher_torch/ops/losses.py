@@ -100,17 +100,37 @@ def dn_diou_loss(pred: Tensor, target: Tensor, weight=None, avg_factor=None,
     return weight_reduce(loss, weight, avg_factor)
 
 
+def _rotated_iou_elem(pred5: Tensor, target5: Tensor, mode: str, eps: float) -> Tensor:
+    ious = rbox_iou(pred5, target5, aligned=True).clamp(min=eps)
+    if mode == "linear":
+        return 1 - ious
+    if mode == "square":
+        return 1 - ious ** 2
+    return -torch.log(ious)
+
+
 def rotated_iou_loss(pred5: Tensor, target5: Tensor, weight=None, avg_factor=None,
                      mode: str = "log", eps: float = 1e-6, loss_weight: float = 1.0) -> Tensor:
     """RotatedIoULoss on aligned rotated boxes: -log(IoU) (default), 1 - IoU
     (linear) or 1 - IoU^2 (square), with the polygon-clip rbox_iou."""
-    ious = rbox_iou(pred5, target5, aligned=True).clamp(min=eps)
-    if mode == "linear":
-        loss = 1 - ious
-    elif mode == "square":
-        loss = 1 - ious ** 2
-    else:
-        loss = -torch.log(ious)
+    return loss_weight * weight_reduce(_rotated_iou_elem(pred5, target5, mode, eps), weight,
+                                       avg_factor)
+
+
+def dn_rotated_iou_loss(pred5: Tensor, target5: Tensor, weight=None, avg_factor=None,
+                        hyper: float = 0.2, mode: str = "log", eps: float = 1e-6,
+                        loss_weight: float = 1.0) -> Tensor:
+    """Denoising rotated IoU loss: the min over a 3x3 bank of targets with
+    w and h perturbed (w - a*w*i, h - a*h*j, a = hyper / 2, i, j in -1, 0,
+    1), averaged with the base rotated IoU loss, per element."""
+    base = _rotated_iou_elem(pred5, target5, mode, eps)
+    a = hyper / 2
+    cx, cy, w, h, ang = target5.unbind(-1)
+    shifts = (-1.0, 0.0, 1.0)
+    bank = torch.stack([torch.stack([cx, cy, w - a * w * i, h - a * h * j, ang], -1)
+                        for i in shifts for j in shifts])   # [9, ..., 5], (i, j) row-major
+    bank_loss = _rotated_iou_elem(pred5.expand_as(bank), bank, mode, eps)
+    loss = (base + torch.amin(bank_loss, 0)) / 2
     return loss_weight * weight_reduce(loss, weight, avg_factor)
 
 

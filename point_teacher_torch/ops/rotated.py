@@ -166,3 +166,21 @@ def rbox_iou(rb1: Tensor, rb2: Tensor, aligned: bool = False, eps: float = 1e-6)
     a1 = r1[..., 2] * r1[..., 3]
     a2 = r2[..., 2] * r2[..., 3]
     return inter / (a1 + a2 - inter).clamp(min=eps)
+
+
+IOU_TILE_ROWS = 256  # rows of a pairwise block a tile of rbox_iou_tiled computes
+
+
+def rbox_iou_tiled(rb1: Tensor, rb2: Tensor) -> Tensor:
+    """Pairwise rbox_iou [..., K, 5] x [..., L, 5] -> [..., K, L], computed
+    IOU_TILE_ROWS rows of rb1 at a time. The polygon clip holds a 64-slot
+    ring of f32 points (0.5 KB) a pair in each of several live tensors, so
+    a tile of [2, 256, 2048] pairs stays within a few GB, where a whole
+    [2, 2048, 2048] block of the class NMS would take ~25 GB. Each pair's
+    IoU is computed on its own, so the result equals rbox_iou's bit for
+    bit."""
+    k = rb1.shape[-2]
+    if k <= IOU_TILE_ROWS:
+        return rbox_iou(rb1, rb2)
+    return torch.cat([rbox_iou(rb1[..., i:i + IOU_TILE_ROWS, :], rb2)
+                      for i in range(0, k, IOU_TILE_ROWS)], -2)

@@ -8,10 +8,11 @@ SODA-A config sodaa_point_teacher_1x.py runs the rotated step at 1200 px) in
 bf16 on fabricated batches from a seeded init, WARMUP times, then STEPS
 times timed with the host clock around a synchronised step, then STEPS more
 times under torch.profiler. With --infer the same for teacher inference of
-one batch (HBB configs: forward, top-k, decode and multiclass NMS, the test
-settings of the config) on the fabricated val images of the eval, twice:
-as initialised and dense (`make_dense`: every candidate passes score_thr,
-neighbours overlap), with the peak memory. Prints per step (or batch):
+one batch (forward, top-k, decode and the class NMS with the test settings
+of the config: multiclass NMS for HBB, rotated multiclass NMS for SODA-A)
+on the fabricated val images of the eval, twice: as initialised and dense
+(`make_dense`: every candidate passes score_thr, neighbours overlap), with
+the peak memory. Prints per step (or batch):
 the wall time (unprofiled), the device busy time (the union of the
 kernels' intervals, profiled) and the idle share, the launches, the busy
 time and the launches inside each `pt.*` range of the step (a range
@@ -122,7 +123,10 @@ def make_dense(model) -> None:
     """Every candidate above score_thr, boxes of about 3.5 strides, so that
     neighbours 1 stride apart overlap by IoU ~0.56 and suppress each other in
     chains: the classification bias 0 (scores near 0.5) and the regression
-    bias such that relu(bias x scale) x stride is 14 px a side."""
+    bias such that relu(bias x scale) x stride is 14 px a side. The HBB and
+    the rotated head both decode bbox_pred as relu(conv_reg x scale) x
+    stride, so this serves either; the rotated head's angle branch is left
+    as it is."""
     head = model.bbox_head
     with torch.no_grad():
         head.conv_cls.bias.zero_()
@@ -133,13 +137,10 @@ def profile_infer(cfg: dict, config: str, dev) -> None:
     """Teacher inference of one batch at full width, as initialised and dense."""
     from ..evalx.runner import build_infer, synthetic_val_set
 
-    pt = cfg["pt"]
-    if cfg.get("rotated"):
-        raise NotImplementedError("--infer covers the HBB configs (the rotated inference "
-                                  "is not ported yet)")
+    pt, rotated = cfg["pt"], bool(cfg.get("rotated"))
     model = cli.build_model(cfg, 0, dev)
-    infer = build_infer(pt)
-    batches, _ = synthetic_val_set(pt, pt.batch_size * (WARMUP + 2 * STEPS), False)
+    infer = build_infer(pt, rotated)
+    batches, _ = synthetic_val_set(pt, pt.batch_size * (WARMUP + 2 * STEPS), rotated)
     images = [torch.as_tensor(b, device=dev) for b in batches]
     ones = torch.ones((pt.batch_size, 4), device=dev)
     for case in ("as initialised", "dense"):

@@ -6,12 +6,19 @@
 
 Runs the TEACHER of a checkpoint written by `point_teacher_torch.tools.train
 --work-dir` (the student with --student; the seeded random init without a
-checkpoint) over the config's COCO-format val set, or over N fabricated
-images with --synthetic-data N, and prints the AI-TOD COCO-style metrics
-(AP at IoU 0.25, vt/t/s/m buckets, oLRP). --tta-scales runs multi-scale +
-flip test-time augmentation. Runs on the CUDA card unless --cpu is given;
-asked for CUDA without a card it raises. HBB configs only; loading a
-reference PyTorch checkpoint (--torch-ckpt of tools/test.py) is not ported.
+checkpoint) over the config's val set, or over N fabricated images with
+--synthetic-data N, and prints the metrics table of the config's fork:
+- HBB (AI-TOD configs): the COCO-format val set; AI-TOD COCO-style metrics
+  (AP at IoU 0.25, vt/t/s/m buckets, oLRP); --tta-scales runs multi-scale +
+  flip test-time augmentation;
+- rotated (sodaa_point_teacher_1x): the SODA-A patch set, each patch's
+  detections merged into its original image by a rotated NMS; SODA-A
+  rotated metrics (AP over IoU .5:.95, eS/rS/gS/Normal buckets, AR@20000);
+  no TTA, as in the reference.
+The last line names the fork's headline: AP@0.25, or AP .5:.95. Runs on the
+CUDA card unless --cpu is given; asked for CUDA without a card it raises.
+Loading a reference PyTorch checkpoint (--torch-ckpt of tools/test.py) is
+not ported.
 """
 from __future__ import annotations
 
@@ -48,6 +55,8 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
     pt, rotated = cfg["pt"], bool(cfg.get("rotated"))
+    if rotated and args.tta_scales:
+        raise SystemExit("--tta-scales covers the HBB path only")
     device = resolve_device(args.cpu)
     infer = build_infer(pt, rotated)
     model = build_model(cfg, 0, device)
@@ -63,9 +72,10 @@ def main(argv=None):
                    flip=not args.tta_no_flip)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     t0 = time.perf_counter()
-    ap, _ = evaluate_detector(infer, model, pt, cfg, synthetic_n=args.synthetic_data,
-                              out=args.out, tta=tta)
-    print(f"\nmAP@0.25 {ap:.4f}; eval {time.perf_counter() - t0:.2f} s on {name}")
+    ap, _ = evaluate_detector(infer, model, pt, cfg, rotated=rotated,
+                              synthetic_n=args.synthetic_data, out=args.out, tta=tta)
+    headline = "AP .5:.95" if rotated else "mAP@0.25"
+    print(f"\n{headline} {ap:.4f}; eval {time.perf_counter() - t0:.2f} s on {name}")
     return ap
 
 

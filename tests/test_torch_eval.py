@@ -289,15 +289,20 @@ def test_test_cli_and_api_ask_for_cuda_without_a_card():
 
 
 def test_rotated_eval_raises_not_implemented():
+    """What the eval still refuses: TTA of the rotated detector (as the JAX
+    package does: the reference's rotated configs run single-scale), through
+    the runner and the API, and show_dir (ROADMAP.md queue 5)."""
     ppt, _ = _pts()
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        prunner.build_infer(ppt, rotated=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        papis.init_detector(os.path.join(REPO, "configs/point_teacher/sodaa_point_teacher_1x.py"),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        prunner.evaluate_detector(None, torch.nn.Linear(1, 1), ppt, {}, synthetic_n=2,
-                                  show_dir="x")
+    with pytest.raises(ValueError, match="HBB path only"):
+        prunner.evaluate_detector(None, torch.nn.Linear(1, 1), ppt, {}, rotated=True,
+                                  synthetic_n=2, tta=dict(scales=[IMG]))
+    det = papis.Detector(torch.nn.Linear(1, 1), None, ("a",), IMG, InferenceCfg(), rotated=True)
+    with pytest.raises(NotImplementedError, match="HBB path"):
+        papis.inference_detector_tta(det, np.zeros((8, 8, 3), np.float32))
+    for rotated in (False, True):
+        with pytest.raises(NotImplementedError, match="queue 5"):
+            prunner.evaluate_detector(None, torch.nn.Linear(1, 1), ppt, {}, rotated=rotated,
+                                      synthetic_n=2, show_dir="x")
 
 
 def test_test_settings_and_overrides_match_jax():

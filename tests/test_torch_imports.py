@@ -38,6 +38,7 @@ def test_scan_sees_the_package():
 @pytest.mark.parametrize("module", [
     "inference", "apis", "data/__init__", "data/coco", "data/loader", "data/pipeline",
     "evalx/__init__", "evalx/cocoeval", "evalx/native", "evalx/runner",
-    "utils/checkpoint", "tools/test"])
+    "utils/checkpoint", "tools/test",
+    "data/sodaa", "data/patch", "evalx/rgeometry", "evalx/sodaa"])
 def test_scan_covers_the_eval_modules(module):
     assert f"point_teacher_torch/{module}.py" in FILES

@@ -35,34 +35,35 @@ ULP2 = 2 * 2.0 ** -23      # two ulps, relative
 MODEL_TOL = 1e-4            # forward in f32 by two libraries (test_torch_models' bound)
 
 
-def match_dets(got, want, rtol, tie, atol=0.0):
-    """Assert (dets [N, 5], labels [N], valid [N]) of the port match JAX's as
-    the module docstring says, with boxes and scores at rtol (+ atol px for
-    boxes) and groups of consecutive JAX scores within `tie` (relative).
-    The padding rows must be invalid with label -1 in both. Returns the
-    number of groups of more than one row."""
+def match_dets(got, want, rtol, tie, atol=0.0, width=4):
+    """Assert (dets [N, width + 1], labels [N], valid [N]) of the port match
+    JAX's as the module docstring says, with boxes (the first `width`
+    columns: 4, or 5 for rotated boxes) and scores (the last column) at
+    rtol (+ atol for boxes) and groups of consecutive JAX scores within
+    `tie` (relative). The padding rows must be invalid with label -1 in
+    both. Returns the number of groups of more than one row."""
     gd, gl, gv = got
     wd, wl, wv = (np.asarray(x) for x in want)
     n = int(wv.sum())
     assert int(gv.sum()) == n
     assert wv[:n].all() and gv[:n].all(), "valid rows come first"
     assert (gl[n:] == -1).all() and (wl[n:] == -1).all()
-    np.testing.assert_allclose(gd[:n, 4], wd[:n, 4], rtol=rtol)
-    cuts = np.nonzero(wd[:n - 1, 4] - wd[1:n, 4] > tie * wd[:n - 1, 4])[0] + 1
+    np.testing.assert_allclose(gd[:n, width], wd[:n, width], rtol=rtol)
+    cuts = np.nonzero(wd[:n - 1, width] - wd[1:n, width] > tie * wd[:n - 1, width])[0] + 1
     groups = 0
     for a, b in zip(np.r_[0, cuts], np.r_[cuts, n]):
         if b - a == 1:
             assert gl[a] == wl[a], f"row {a}: label {gl[a]} != {wl[a]}"
-            np.testing.assert_allclose(gd[a, :4], wd[a, :4], rtol=rtol, atol=atol)
+            np.testing.assert_allclose(gd[a, :width], wd[a, :width], rtol=rtol, atol=atol)
             continue
         groups += 1
         free = list(range(a, b))
         for j in range(a, b):
-            err = [np.abs(gd[i, :4] - wd[j, :4]).max() if gl[i] == wl[j] else np.inf
+            err = [np.abs(gd[i, :width] - wd[j, :width]).max() if gl[i] == wl[j] else np.inf
                    for i in free]
             i = free.pop(int(np.argmin(err)))
             assert gl[i] == wl[j]
-            np.testing.assert_allclose(gd[i, :4], wd[j, :4], rtol=rtol, atol=atol)
+            np.testing.assert_allclose(gd[i, :width], wd[j, :width], rtol=rtol, atol=atol)
     return groups
 
 

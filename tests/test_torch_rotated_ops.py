@@ -168,3 +168,28 @@ def test_rotated_iou_loss_and_grad_match_jax(mode):
     _close(got, want)
     np.testing.assert_allclose(ta.grad.numpy(), np.asarray(ga), rtol=GTOL,
                                atol=GTOL * float(np.abs(np.asarray(ga)).max()))
+
+
+
+def test_dn_rotated_iou_loss_matches_jax():
+    """Random pairs whose prediction lies near its target (IoU 0.3-0.95,
+    away from IoU ~0, where -log IoU amplifies the clip's last-bit
+    differences: ROADMAP.md queue 3), every box of the 3x3 bank too; the
+    three modes, values. JAX's side is one jit of all three (eager JAX
+    compiles each of the vmapped bank's primitives on its own, and its
+    gradient graph alone takes ~30 s to compile); no training path of
+    either package calls this loss."""
+    r = np.random.RandomState(16)
+    n = 64
+    b = np.concatenate([r.uniform(20, 80, (n, 2)), r.uniform(8, 30, (n, 2)),
+                        r.uniform(-1.5, 1.5, (n, 1))], -1).astype(np.float32)
+    a = b + np.concatenate([r.uniform(-2, 2, (n, 2)), r.uniform(-3, 3, (n, 2)),
+                            r.uniform(-0.15, 0.15, (n, 1))], -1).astype(np.float32)
+    w = r.uniform(0, 1, n).astype(np.float32)
+    modes = ("log", "linear", "square")
+    iou, *want = jax.jit(lambda x, y, v: [jr.rbox_iou(x, y, aligned=True)] + [
+        jl.dn_rotated_iou_loss(x, y, weight=v, avg_factor=5.0, mode=m) for m in modes])(
+            jnp.asarray(a), jnp.asarray(b), jnp.asarray(w))
+    assert 0.3 < float(iou.min()) and float(iou.max()) < 1.0
+    for mode, wm in zip(modes, want):
+        _close(tl.dn_rotated_iou_loss(_t(a), _t(b), weight=_t(w), avg_factor=5.0, mode=mode), wm)
