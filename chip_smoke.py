@@ -85,7 +85,33 @@ Phases:
    and, from the same state with the dense teacher, on a fabricated SODA-A
    patch set under build/ (one 2000 px image split by data/patch.py into
    four 1200 px patches, PNGs and jsons) with the dataset paths and
-   max_per_img 100 passed by --cfg-options.
+   max_per_img 100 passed by --cfg-options;
+10. the CLI at parity, on datasets written under build/ in the real
+   on-disk layouts: an AI-TOD-v2 set (one COCO json a split with the 8
+   class names, 8 train and 4 val 800 px PNGs of random pixels, 1-100 boxes
+   of 4-16 px an image). tools.train main on the HBB config at full width
+   (B=2, bf16) with --max-steps 6 --val-interval 1 and burn_in_step 2 (two
+   epochs of 4 steps, phase 1 then phase 2), fed by TrainLoader: K1 / K2
+   launched 3 / 3 in each phase-1 step and 2 / 2 in each phase-2 step (the
+   counts read around every step), train and val records in
+   train_log.jsonl, finite; epoch_1.pth, epoch_2.pth, latest.pth and
+   best.pth with their meta; each step's wall and the loop's time between
+   steps beside phase 7's wall on fabricated batches; the validations'
+   seconds. Then a fresh state loaded from epoch_1.pth, bit-equal to the
+   file (student, teacher, optimizer trace, point caches), with its time,
+   and a resumed run into a second work dir (the `resumed from ... at step
+   4` line, steps 5 and 6); tools.test main on best.pth over the on-disk val
+   set; the trained state as a reference-format teacher-student file
+   (teacher. / student. keys and keys no loader reads) through --torch-ckpt:
+   the loaded teacher bit-equal to the state's, the headline equal to
+   latest.pth's. Then each baseline config (fcos, rfla_fcos) for 3 steps
+   with --val-interval 1 at 800 px: step ms, peak memory, a val batch's
+   inference ms of the teacher as trained and dense (FCOS: make_dense;
+   RFLA: make_dense_rfla; every candidate passes, the class NMS runs its
+   6 / 13 chunks with live candidates), no RoIAlign launch.
+   Then the SODA-A config for 2 steps (phase 1, then 2) from a divData
+   train split at 1200 px, no validation: K3 / K4 3 / 3 then 2 / 2. Prints
+   the phase's own time.
 
 Any failure ends the run with a nonzero exit. The last line is the JSON
 contract line; the line before it is the card's name and power limit, and
@@ -94,8 +120,10 @@ check's), after the run's total seconds.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -676,7 +704,8 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
     launches each of `kernels`' op module), then 3 phase-2 steps (2 and 2);
     `others` is an op module whose kernels the path must not launch;
     `frozen` and `unchanged` parameters must not move, `trainable` ones
-    must. Returns the launch counts of the run and the train state."""
+    must. Returns the launch counts of the run, the train state and the
+    mean wall ms of each phase's steps 2, 3 ({1: ms, 2: ms})."""
     cfg = apply_overrides(load_config(config), ["pt.burn_in_step=2"])
     rotated = bool(cfg.get("rotated"))
     pt, state, step_fn = cli.setup(cfg, 12, 0, dev)
@@ -741,7 +770,7 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
               f"peak memory {peaks[phase] / 2**30:.2f} GiB", flush=True)
     print(f"main path {config}: launches {counts}; frozen unchanged "
           f"{len(frozen + unchanged)}, trainable moved {len(trainable)}", flush=True)
-    return launches, state
+    return launches, state, {phase: float(np.mean(step_ms[phase][1:])) for phase in (1, 2)}
 
 
 # --------------------------------------------------------------------------
@@ -955,20 +984,17 @@ def check_rdets(case: str, dets, labels, valid) -> float:
 
 
 def write_sodaa_layout(root: str, seed: int = 0) -> dict:
-    """A SODA-A val set in the divData / rawData layout: one 2000 x 2000
-    original image (random pixels) with 60 rotated GTs of 8-40 px, split by
-    data/patch.py into four 1200 px patches (sizes (1200,), gaps (200,)),
-    written as PNG pixels under the patch names the dataset reads, each
-    patch's json with the GTs whose centre lies in it, translated, and the
-    original's json. Returns the config's dataset paths."""
+    """A SODA-A set in the divData / rawData layout, a val and a train split,
+    each one 2000 x 2000 original image (random pixels) with 60 rotated GTs
+    of 8-40 px, split by data/patch.py into four 1200 px patches (sizes
+    (1200,), gaps (200,)), written as PNG pixels under the patch names the
+    dataset reads, each patch's json with the GTs whose centre lies in it,
+    translated, and, for val, the original's json. Returns the config's
+    dataset paths."""
     from PIL import Image
 
     r = np.random.RandomState(seed)
-    img = r.randint(0, 255, (2000, 2000, 3)).astype(np.uint8)
-    gts = np.concatenate([r.uniform(20, 1980, (60, 2)), r.uniform(8, 40, (60, 2)),
-                          r.uniform(-np.pi / 2, np.pi / 2, (60, 1))], -1)
-    labels = r.randint(0, 9, 60)
-    paths = {k: os.path.join(root, k) for k in ("ann", "img", "ori")}
+    paths = {k: os.path.join(root, k) for k in ("ann", "img", "ori", "train_ann", "train_img")}
     for p in paths.values():
         os.makedirs(p, exist_ok=True)
 
@@ -978,16 +1004,23 @@ def write_sodaa_layout(root: str, seed: int = 0) -> dict:
             json.dump(dict(annotations=[dict(poly=p, category_id=int(c))
                                         for p, c in zip(polys, labs)]), f)
 
-    write(os.path.join(paths["ori"], "scene.json"), gts, labels)
-    for patch, (x0, y0) in split_image(img, (1200,), (200,)):
-        name = patch_name("scene.png", 1200, x0, y0)
-        Image.fromarray(patch).save(os.path.join(paths["img"], name), format="PNG")
-        h, w = patch.shape[:2]
-        inside = ((gts[:, 0] >= x0) & (gts[:, 0] < x0 + w) & (gts[:, 1] >= y0)
-                  & (gts[:, 1] < y0 + h))
-        write(os.path.join(paths["ann"], name.replace(".jpg", ".json")),
-              gts[inside] - [x0, y0, 0, 0, 0], labels[inside])
-    return dict(val_ann=paths["ann"], val_img_prefix=paths["img"], ori_val_ann=paths["ori"])
+    for ann_dir, img_dir in (("ann", "img"), ("train_ann", "train_img")):
+        img = r.randint(0, 255, (2000, 2000, 3)).astype(np.uint8)
+        gts = np.concatenate([r.uniform(20, 1980, (60, 2)), r.uniform(8, 40, (60, 2)),
+                              r.uniform(-np.pi / 2, np.pi / 2, (60, 1))], -1)
+        labels = r.randint(0, 9, 60)
+        if ann_dir == "ann":
+            write(os.path.join(paths["ori"], "scene.json"), gts, labels)
+        for patch, (x0, y0) in split_image(img, (1200,), (200,)):
+            name = patch_name("scene.png", 1200, x0, y0)
+            Image.fromarray(patch).save(os.path.join(paths[img_dir], name), format="PNG")
+            h, w = patch.shape[:2]
+            inside = ((gts[:, 0] >= x0) & (gts[:, 0] < x0 + w) & (gts[:, 1] >= y0)
+                      & (gts[:, 1] < y0 + h))
+            write(os.path.join(paths[ann_dir], name.replace(".jpg", ".json")),
+                  gts[inside] - [x0, y0, 0, 0, 0], labels[inside])
+    return dict(val_ann=paths["ann"], val_img_prefix=paths["img"], ori_val_ann=paths["ori"],
+                train_ann=paths["train_ann"], train_img_prefix=paths["train_img"])
 
 
 def phase_rotated_inference(dev, state) -> None:
@@ -1079,7 +1112,8 @@ def phase_rotated_inference(dev, state) -> None:
         out = os.path.join(ckpt_dir, "patches.npz")
         t0 = time.perf_counter()
         pap = test_cli.main([config, dense_path, "--out", out, "--cfg-options",
-                             *[f"dataset.{k}={v}" for k, v in layout.items()],
+                             *[f"dataset.{k}={v}" for k, v in layout.items()
+                               if not k.startswith("train")],
                              f"pt.test.max_per_img={PATCH_MAX_PER_IMG}"])
         patch_s = time.perf_counter() - t0
         merged = [a.shape for a in np.load(out).values()]
@@ -1100,12 +1134,364 @@ def phase_rotated_inference(dev, state) -> None:
     print(f"rotated inference and eval launched no RoIAlign kernel: {counts}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# the CLI at parity (phase 10)
+# --------------------------------------------------------------------------
+
+FCOS_CONFIG = "configs/baselines/aitodv2_fcos_r50_1x.py"
+RFLA_CONFIG = "configs/baselines/aitodv2_rfla_fcos_1x.py"
+AITOD_CLASSES = ("airplane", "bridge", "storage-tank", "ship", "swimming-pool", "vehicle",
+                 "person", "wind-mill")
+
+
+def make_dense_rfla(model) -> None:
+    """make_dense for an RFLAFCOS: the classification bias 0 (every
+    candidate above score_thr) and each level's Scale such that
+    exp(bias x scale) is 1.75 strides a side, so that a box spans ~3.5
+    strides and neighbours suppress each other in chains."""
+    head = model.bbox_head
+    with torch.no_grad():
+        head.conv_cls.bias.zero_()
+        head.conv_reg.bias.fill_(1.0)
+        for scale, stride in zip(head.scales, model.strides):
+            scale.scale.fill_(float(np.log(1.75 * stride)))
+
+
+def write_aitod_layout(root: str, seed: int = 0, n_train: int = 8, n_val: int = 4) -> dict:
+    """An AI-TOD-v2 set in its on-disk layout: per split an image folder of
+    800 x 800 PNGs of random pixels and one COCO json with the 8 AI-TOD class
+    names, 1-100 boxes of 4-16 px an image. Returns the config's dataset
+    paths."""
+    from PIL import Image
+
+    r = np.random.RandomState(seed)
+    out = {}
+    for split, n in (("train", n_train), ("val", n_val)):
+        img_dir = os.path.join(root, split)
+        os.makedirs(img_dir, exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            name = f"{split}_{i:04d}.png"
+            Image.fromarray(r.randint(0, 255, (IMG, IMG, 3)).astype(np.uint8)).save(
+                os.path.join(img_dir, name))
+            images.append(dict(id=i + 1, file_name=name, width=IMG, height=IMG))
+            for _ in range(r.randint(1, 101)):
+                bw, bh = r.uniform(4, 16, 2)
+                x, y = r.uniform(0, IMG - bw), r.uniform(0, IMG - bh)
+                anns.append(dict(id=len(anns) + 1, image_id=i + 1, iscrowd=0,
+                                 category_id=int(r.randint(1, 9)),
+                                 bbox=[float(x), float(y), float(bw), float(bh)]))
+        ann = os.path.join(root, f"aitodv2_{split}.json")
+        with open(ann, "w") as f:
+            json.dump(dict(images=images, annotations=anns, categories=[
+                dict(id=i + 1, name=c) for i, c in enumerate(AITOD_CLASSES)]), f)
+        out[f"{split}_ann"], out[f"{split}_img_prefix"] = ann, img_dir + "/"
+    return out
+
+
+class StepProbe:
+    """Wraps the CLI's build_step so that each step of a run records its
+    phase, the launches of `kernels` and of `others` it made, its wall
+    (synchronised, host clock) and the time it ended."""
+
+    def __init__(self, kernels, others):
+        self.kernels, self.others, self.rows = kernels, others, []
+
+    def __enter__(self):
+        self.orig = cli.build_step
+
+        def build(cfg, pt):
+            fn = self.orig(cfg, pt)
+
+            def step(state, batch, phase1=False):
+                c0 = (self.kernels.launch_counts(), self.others.launch_counts())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = fn(state, batch, phase1=phase1)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                c1 = (self.kernels.launch_counts(), self.others.launch_counts())
+                self.rows.append(dict(
+                    phase1=phase1, step_ms=(t1 - t0) * 1e3, end=t1,
+                    launches={k: v - c0[0][k] for k, v in c1[0].items()},
+                    others=sum(c1[1].values()) - sum(c0[1].values())))
+                return metrics
+
+            return step
+
+        cli.build_step = build
+        return self
+
+    def __exit__(self, *exc):
+        cli.build_step = self.orig
+
+    def check_launches(self, name: str, n_fwd) -> None:
+        """Each step launched n_fwd(phase1) forwards and as many windowed
+        backwards of `kernels`, nothing else of them and none of `others`."""
+        for i, row in enumerate(self.rows):
+            n = n_fwd(row["phase1"])
+            want = {k: n if k in ("fwd", "bwd") else 0 for k in row["launches"]}
+            check(row["launches"] == want and row["others"] == 0,
+                  f"{name} step {i + 1} (phase {2 - row['phase1']}): launches "
+                  f"{row['launches']} (others {row['others']}), want {want}")
+
+    def walls(self, phase1: bool):
+        """(step ms, loop ms) of the steps of one phase that are not the first
+        of an epoch of 4 steps: each step's synchronised wall, and the time
+        from the previous step's end to this one's (the loader's wait, the
+        host-to-device copy, the step and the CLI's logging)."""
+        rows = [(r, self.rows[i - 1]) for i, r in enumerate(self.rows)
+                if i % 4 and r["phase1"] == phase1]
+        return ([r["step_ms"] for r, _ in rows],
+                [(r["end"] - prev["end"]) * 1e3 for r, prev in rows])
+
+
+def run_cli(main, argv):
+    """main(argv), its standard output also kept; returns (result, output)."""
+    class Tee(io.TextIOBase):
+        def __init__(self):
+            self.parts = []
+
+        def write(self, text):
+            self.parts.append(text)
+            return sys.__stdout__.write(text)
+
+        def flush(self):
+            sys.__stdout__.flush()
+
+    tee = Tee()
+    with contextlib.redirect_stdout(tee):
+        result = main(argv)
+    return result, "".join(tee.parts)
+
+
+def check_log(work_dir: str, modes) -> list:
+    with open(os.path.join(work_dir, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    check([r["mode"] for r in log] == list(modes), f"{work_dir}: log modes "
+          f"{[r['mode'] for r in log]}")
+    bad = [r for r in log if not all(np.isfinite(v) for k, v in r.items() if k != "mode")]
+    check(not bad, f"{work_dir}: non-finite log records {bad}")
+    return log
+
+
+def phase_cli(dev, fab_ms) -> None:
+    """Phase 10 (see the module docstring); `fab_ms` is phase 7's HBB step
+    wall on fabricated batches, {phase: ms}."""
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        _phase_cli(dev, root, fab_ms)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 10 total: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _phase_cli(dev, root: str, fab) -> None:
+    from point_teacher_torch.data import AITODDataset, EvalLoader
+    from point_teacher_torch.utils import checkpoint as ckpt
+    from point_teacher_torch.utils.torch_port import load_reference_ts_checkpoint
+
+    t0 = time.perf_counter()
+    layout = write_aitod_layout(os.path.join(root, "aitod"))
+    data_opts = [f"dataset.{k}={v}" for k, v in layout.items()]
+    print(f"AI-TOD-v2 layout: 8 train and 4 val {IMG} px PNGs, 1-100 boxes of 4-16 px an "
+          f"image, in {time.perf_counter() - t0:.1f} s", flush=True)
+    hbb = os.path.join(ROOT, HBB_CONFIG)
+
+    # the HBB Point-Teacher fed from disk: 6 steps, phase 1 then 2, two epochs
+    d1 = os.path.join(root, "run")
+    ra.reset_launch_counts()
+    rr.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with StepProbe(ra, rr) as probe:
+        t0 = time.perf_counter()
+        state, out = run_cli(cli.main, [hbb, "--work-dir", d1, "--max-steps", "6",
+                                        "--val-interval", "1", "--cfg-options",
+                                        "pt.burn_in_step=2", *data_opts])
+        run_s = time.perf_counter() - t0
+    check(state.step == 6 and "training done at step 6" in out, "HBB CLI run did not reach 6")
+    check([r["phase1"] for r in probe.rows] == [True] * 3 + [False] * 3,
+          f"phase switch {[r['phase1'] for r in probe.rows]}")
+    probe.check_launches("HBB from disk", lambda p1: 3 if p1 else 2)
+    log = check_log(d1, ["train", "val", "train", "val"])
+    val_s = [float(line.rsplit("; ", 1)[1].split()[0]) for line in out.splitlines()
+             if ": val mAP = " in line]
+    for name in ("epoch_1.pth", "epoch_2.pth", "latest.pth", "best.pth"):
+        meta = ckpt.load_meta(os.path.join(d1, name))
+        check(os.path.exists(os.path.join(d1, name)) and {"epoch", "step", "num_images"}
+              <= set(meta), f"{name}: meta {meta}")
+    check(ckpt.load_meta(os.path.join(d1, "latest.pth"))["step"] == 6, "latest.pth step")
+    walls = []
+    for phase1 in (True, False):
+        steps, loops = probe.walls(phase1)
+        ph = 1 if phase1 else 2
+        walls.append(f"phase {ph}: step ms {np.mean(steps):.1f}, loop ms {np.mean(loops):.1f} "
+                     f"(loader wait, copy and logging {np.mean(loops) - np.mean(steps):.1f}); "
+                     f"phase 7 on fabricated batches {fab[ph]:.1f}")
+    print(f"HBB from disk (aitodv2_point_teacher_0, {IMG} px, B={B}, bf16, burn_in_step 2): "
+          f"per step launches {[r['launches'] for r in probe.rows]}; step ms "
+          f"{[round(r['step_ms'], 1) for r in probe.rows]}; steps not first of an epoch: "
+          f"{'; '.join(walls)}; validation s {val_s} (val mAP "
+          f"{[r['val_mAP'] for r in log if r['mode'] == 'val']}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; whole run {run_s:.1f} s "
+          f"(6 steps, 2 validations, 3 checkpoint files)", flush=True)
+
+    # resume from epoch_1.pth: the loaded state bit for bit the file's, then steps 5 and 6
+    t0 = time.perf_counter()
+    pt0, fresh, _ = cli.setup(cli.apply_overrides(load_config(hbb), [*data_opts]), 8, 0, dev)
+    ckpt.load_checkpoint(fresh, os.path.join(d1, "epoch_1.pth"))
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    saved = torch.load(os.path.join(d1, "epoch_1.pth"), map_location="cpu", weights_only=True)
+    diff = [f"{b}.{k}" for b in ("student", "teacher")
+            for k, v in getattr(fresh, b).state_dict().items()
+            if not torch.equal(v.cpu(), saved[b][k])]
+    diff += [f"trace.{lab}.{i}" for lab in ("base", "bias")
+             for i, (x, y) in enumerate(zip(fresh.optimizer.trace[lab],
+                                            saved["optimizer"]["trace"][lab]))
+             if not torch.equal(x.cpu(), y)]
+    diff += [n for n in ("origin_points", "refined_points", "points_cached")
+             if not torch.equal(getattr(fresh, n).cpu(), saved[n])]
+    check(not diff and fresh.step == 4 and fresh.optimizer.count == 4,
+          f"resumed state differs from epoch_1.pth: {diff[:5]} step {fresh.step}")
+    check(bool(fresh.points_cached.all()), "resumed point caches not all set")
+    del fresh, saved
+    d2 = os.path.join(root, "resumed")
+    with StepProbe(ra, rr) as probe2:
+        _, out2 = run_cli(cli.main, [hbb, "--work-dir", d2, "--max-steps", "6", "--resume-from",
+                                     os.path.join(d1, "epoch_1.pth"), "--cfg-options",
+                                     "pt.burn_in_step=2", *data_opts])
+    check(f"resumed from {os.path.join(d1, 'epoch_1.pth')} at step 4" in out2
+          and "training done at step 6" in out2 and len(probe2.rows) == 2,
+          "resumed run: no resume line or not 2 steps")
+    probe2.check_launches("HBB resumed", lambda p1: 3 if p1 else 2)
+    shutil.rmtree(d2)
+    print(f"resume: setup + load of epoch_1.pth {resume_s:.2f} s; student, teacher, optimizer "
+          f"trace and count, point caches bit-equal to the file; the resumed run printed the "
+          f"resume line at step 4 and took steps 5, 6", flush=True)
+
+    # tools.test on best.pth over the on-disk val set; the reference-format
+    # file of the state's branches through --torch-ckpt against latest.pth
+    t0 = time.perf_counter()
+    best_ap, _ = run_cli(test_cli.main, [hbb, os.path.join(d1, "best.pth"), "--cfg-options",
+                                         *data_opts])
+    best_s = time.perf_counter() - t0
+    ts = os.path.join(root, "reference_ts.pth")
+    sd = {f"{b}.{k}": v.cpu() for b in ("teacher", "student")
+          for k, v in getattr(state, b).state_dict().items()}
+    sd.update({"teacher.bbox_head.fc_iou.0.weight": torch.ones(1, 1024),
+               "teacher.bbox_head.shared_fcs.0.weight": torch.ones(1024, 12544),
+               "teacher.backbone.bn1.num_batches_tracked": torch.tensor(6)})
+    torch.save({"state_dict": sd, "meta": {"epoch": 2}}, ts)
+    del sd
+    loaded = cli.build_model(load_config(hbb), 1, dev)
+    load_reference_ts_checkpoint(loaded, ts, "teacher", num_stages=pt0.num_stages)
+    tsd = state.teacher.state_dict()
+    bad = [k for k, v in loaded.state_dict().items() if not torch.equal(v, tsd[k])]
+    check(not bad, f"--torch-ckpt teacher differs from the state's: {bad[:5]}")
+    del loaded
+    ts_ap, _ = run_cli(test_cli.main, [hbb, "--torch-ckpt", ts, "--cfg-options", *data_opts])
+    latest_ap, _ = run_cli(test_cli.main, [hbb, os.path.join(d1, "latest.pth"),
+                                           "--cfg-options", *data_opts])
+    check(np.isfinite(best_ap) and ts_ap == latest_ap,
+          f"eval: best {best_ap}, --torch-ckpt {ts_ap} vs latest.pth {latest_ap}")
+    print(f"tools.test: best.pth over the 4 on-disk val images mAP@0.25 {best_ap:.4f} in "
+          f"{best_s:.2f} s host time; the reference-format file (teacher. / student. keys, "
+          f"fc_iou, shared_fcs, num_batches_tracked) through --torch-ckpt: teacher bit-equal to "
+          f"the state's, mAP@0.25 {ts_ap:.4f} = latest.pth's {latest_ap:.4f}", flush=True)
+    del state
+    shutil.rmtree(d1)
+    os.remove(ts)
+    torch.cuda.empty_cache()
+
+    # the two box-supervised baselines: 3 steps each, a validation, their inference
+    for config, name in ((FCOS_CONFIG, "fcos"), (RFLA_CONFIG, "rfla_fcos")):
+        db = os.path.join(root, name)
+        ra.reset_launch_counts()
+        rr.reset_launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with StepProbe(ra, rr) as probe:
+            bstate, out = run_cli(cli.main, [os.path.join(ROOT, config), "--work-dir", db,
+                                             "--max-steps", "3", "--val-interval", "1",
+                                             "--cfg-options", *data_opts])
+        peak = torch.cuda.max_memory_allocated()
+        probe.check_launches(name, lambda p1: 0)
+        counts = {**ra.launch_counts(), **{f"rotated_{k}": v for k, v in rr.launch_counts()
+                                           .items()}}
+        check(not any(counts.values()), f"{name}: RoIAlign launches {counts}")
+        check_log(db, ["train", "val"])
+        cfg = load_config(config)
+        pt = cfg["pt"]
+        infer = build_infer(pt, False, cfg.get("trainer"))
+        ds = AITODDataset(layout["val_ann"], layout["val_img_prefix"], filter_empty=False)
+        _, imgs, scales, shapes = next(iter(EvalLoader(ds, B, IMG)))
+        args = [torch.as_tensor(x, device=dev) for x in (imgs, scales, shapes)]
+        dense = copy.deepcopy(bstate.teacher)
+        (make_dense_rfla if name == "rfla_fcos" else make_dense)(dense)
+        timing = {}
+        for case, model in (("as trained", bstate.teacher), ("dense", dense)):
+            d, _, v = infer(model, *args)
+            check(bool(torch.isfinite(d).all()), f"{name} {case}: non-finite detections")
+            with torch.no_grad():
+                fwd_ms = timed(lambda: model(args[0]), reps=5, warmup=1)
+            timing[case] = (fwd_ms, timed(lambda: infer(model, *args), reps=5, warmup=1),
+                            v.sum(-1).tolist())
+        check(all(n > 0 for n in timing["dense"][2]),
+              f"{name} dense: valid {timing['dense'][2]}, an image kept nothing")
+        del dense
+        if name == "rfla_fcos":
+            per_level = [min(pt.test.nms_pre, (-(-pt.img_size // s)) ** 2)
+                         for s in (8, 16, 32, 64, 128)]
+            m = sum(per_level) * pt.num_classes
+            nms_txt = (f"{sum(per_level)} candidates ({per_level}) x {pt.num_classes} classes "
+                       f"= {m} class-expanded an image, {-(-m // nms_ops.CLASS_NMS_CHUNK)} "
+                       f"chunks of {nms_ops.CLASS_NMS_CHUNK}")
+        else:
+            m = min(pt.test.nms_pre, pt.feat_size ** 2) * pt.num_classes
+            nms_txt = f"{m} class-expanded candidates an image, " \
+                      f"{-(-m // nms_ops.CLASS_NMS_CHUNK)} chunks"
+        check(not any(v for c in (ra.launch_counts(), rr.launch_counts()) for v in c.values()),
+              f"{name}: inference launched RoIAlign kernels")
+        steps = [r["step_ms"] for r in probe.rows]
+        print(f"baseline {name} ({IMG} px, B={B}, bf16), from disk: step ms "
+              f"{[round(x, 1) for x in steps]} (steps 2, 3: {np.mean(steps[1:]):.1f}); peak "
+              f"memory {peak / 2**30:.2f} GiB; RoIAlign launches 0; inference of a val batch "
+              f"(teacher; {nms_txt}): " + "; ".join(
+                  f"{case}: forward ms {f:.3f}, whole ms {w:.3f}, valid {n}"
+                  for case, (f, w, n) in timing.items()), flush=True)
+        del bstate
+        shutil.rmtree(db)
+
+    # the SODA-A Point-Teacher fed from a divData train split: 2 steps, phase 1 then 2
+    slayout = write_sodaa_layout(os.path.join(root, "sodaa"), seed=3)
+    ds_dir = os.path.join(root, "sodaa_run")
+    torch.cuda.empty_cache()
+    with StepProbe(rr, ra) as probe:
+        sstate, out = run_cli(cli.main, [os.path.join(ROOT, SODAA_CONFIG), "--work-dir", ds_dir,
+                                         "--max-steps", "2", "--cfg-options",
+                                         "pt.burn_in_step=0",
+                                         f"dataset.train_ann={slayout['train_ann']}",
+                                         f"dataset.train_img_prefix="
+                                         f"{slayout['train_img_prefix']}"])
+    check(sstate.step == 2 and [r["phase1"] for r in probe.rows] == [True, False],
+          f"SODA-A from disk: {[r['phase1'] for r in probe.rows]}")
+    probe.check_launches("SODA-A from disk", lambda p1: 3 if p1 else 2)
+    check_log(ds_dir, ["train"])
+    print(f"SODA-A from disk (sodaa_point_teacher_1x, {RIMG} px patches of a divData train "
+          f"split, B={B}): per step launches {[r['launches'] for r in probe.rows]}; step ms "
+          f"{[round(r['step_ms'], 1) for r in probe.rows]}", flush=True)
+    del sstate
+
+
 def build_all() -> None:
     """nvcc for both sources at once (one process each), with -Xptxas -v."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         logs = list(pool.map(lambda mod: mod.build(ptxas_verbose=True), (ra, rr)))
-    print(f"[2/9] build: {time.perf_counter() - t0:.1f} s -> {ra.LIBRARY}, {rr.LIBRARY} "
+    print(f"[2/10] build: {time.perf_counter() - t0:.1f} s -> {ra.LIBRARY}, {rr.LIBRARY} "
           f"(sm_90a)", flush=True)
     for mod, log in zip((ra, rr), logs):
         for line in log.splitlines():
@@ -1138,23 +1524,23 @@ def main():
     dev = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    print(f"[1/9] device: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
+    print(f"[1/10] device: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_all()
 
-    print("[3/9] K1 / K2 checks against the plain version (AI-TOD shapes)", flush=True)
+    print("[3/10] K1 / K2 checks against the plain version (AI-TOD shapes)", flush=True)
     cases = hbb_cases(dev)
     errs = merge_errs(check_family(HBB, dev, cases, seed=0),
                       check_channels(HBB, dev, cases[2], seed=5))
-    print("[4/9] K3 / K4 checks against the plain version (SODA-A shapes)", flush=True)
+    print("[4/10] K3 / K4 checks against the plain version (SODA-A shapes)", flush=True)
     cases = rotated_cases(dev)
     rerrs = merge_errs(check_family(ROT, dev, cases, seed=1),
                        check_channels(ROT, dev, cases[1], seed=6))
     del cases
     torch.cuda.empty_cache()
-    print("[5/9] kernel timing (bf16, main-path shapes)", flush=True)
+    print("[5/10] kernel timing (bf16, main-path shapes)", flush=True)
     bw, f32_rate = peaks(name)
     reg, member, cls_neg, cls_neg_clamp = mil_rois(2, dev)
     shapes = [("reg_bags", reg, member), ("cls+neg", cls_neg, cls_neg_clamp)]
@@ -1167,7 +1553,7 @@ def main():
     del shapes, rshapes
     del reg, member, cls_neg, cls_neg_clamp
     torch.cuda.empty_cache()
-    print("[6/9] port checks", flush=True)
+    print("[6/10] port checks", flush=True)
     for phase1 in (False, True):
         phase_port_check(dev, "aitodv2_point_teacher_0.py", phase1)
         phase_port_check(dev, "sodaa_point_teacher_1x.py", phase1)
@@ -1175,8 +1561,8 @@ def main():
     phase_synthesis_check(dev, "sodaa_point_teacher_1x.py")
     # the main paths run as in training: the default precision settings
     torch.backends.cudnn.allow_tf32 = True
-    print("[7/9] main paths", flush=True)
-    launches, hbb_state = phase_main_path(
+    print("[7/10] main paths", flush=True)
+    launches, hbb_state, hbb_ms = phase_main_path(
         dev, HBB_CONFIG, ra, rr,
         frozen=["backbone.conv1.weight", "backbone.layer1.0.conv2.weight",
                 "backbone.layer3.0.bn1.weight"],
@@ -1184,7 +1570,7 @@ def main():
         trainable=["backbone.layer3.0.conv2.weight", "bbox_head.conv_cls.weight",
                    "bbox_head.shared_fcs_bag.0.0.weight"])
     torch.cuda.empty_cache()
-    rlaunches, sodaa_state = phase_main_path(
+    rlaunches, sodaa_state, _ = phase_main_path(
         dev, SODAA_CONFIG, rr, ra,
         frozen=["backbone.conv1.weight", "backbone.bn1.weight",
                 "backbone.layer1.0.conv2.weight", "backbone.layer1.0.bn1.weight"],
@@ -1194,13 +1580,16 @@ def main():
                    "bbox_head.cls_convs.0.gn.weight", "bbox_head.scale_angle.scale",
                    "bbox_head.shared_fcs_bag.0.0.weight"])
     torch.cuda.empty_cache()
-    print("[8/9] inference and eval", flush=True)
+    print("[8/10] inference and eval", flush=True)
     phase_inference(dev, hbb_state)
     del hbb_state
     torch.cuda.empty_cache()
-    print("[9/9] SODA-A inference and eval", flush=True)
+    print("[9/10] SODA-A inference and eval", flush=True)
     phase_rotated_inference(dev, sodaa_state)
     del sodaa_state
+    torch.cuda.empty_cache()
+    print("[10/10] the CLI at parity", flush=True)
+    phase_cli(dev, hbb_ms)
 
     kernels = kernel_rows(launches, errs, rows, "point_teacher_torch/csrc/roi_align.cu", (
         ("roi_align_fwd", "fwd", 0, "point_teacher_tpu/ops/roi_align_pallas.py:49"),

@@ -48,7 +48,8 @@ def init_detector(config_path: str, checkpoint: Optional[str] = None,
     if checkpoint:
         load_weights(model, checkpoint, "teacher" if use_teacher else "student")
     classes = SODAADataset.CLASSES if rotated else AITODDataset.CLASSES
-    return Detector(model, build_infer(pt, rotated), classes, pt.img_size, pt.test, rotated)
+    infer = build_infer(pt, rotated, cfg.get("trainer", "point_teacher"))
+    return Detector(model, infer, classes, pt.img_size, pt.test, rotated)
 
 
 def _per_class(detector: Detector, dets, labels, valid) -> List[np.ndarray]:

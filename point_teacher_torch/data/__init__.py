@@ -1,3 +1,3 @@
 from .coco import AITODDataset, CocoDetDataset  # noqa: F401
-from .loader import EvalLoader  # noqa: F401
+from .loader import EvalLoader, TrainLoader  # noqa: F401
 from .sodaa import SODAADataset  # noqa: F401

@@ -27,12 +27,15 @@ HBB_HEADER = "AI-TOD COCO-style metrics (IoU 0.25)"
 ROTATED_HEADER = "SODA-A rotated metrics (AP over IoU .5:.95)"
 
 
-def build_infer(pt, rotated: bool = False):
+def build_infer(pt, rotated: bool = False, trainer: str = "point_teacher"):
     """The inference function of a config: infer(model, images,
-    scale_factors, img_shapes=None), or, rotated, infer(model, images,
-    scale_factors)."""
-    from ..inference import build_inference_fn, build_rotated_inference_fn
+    scale_factors, img_shapes=None); rotated, infer(model, images,
+    scale_factors). The `rfla_fcos` trainer's is the multi-level RFLA one."""
+    from ..inference import (build_inference_fn, build_rfla_inference_fn,
+                             build_rotated_inference_fn)
 
+    if trainer == "rfla_fcos":
+        return build_rfla_inference_fn(pt.test, pt.img_size)
     build = build_rotated_inference_fn if rotated else build_inference_fn
     return build(pt.test, pt.img_size, pt.stride)
 

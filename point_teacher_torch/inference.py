@@ -3,13 +3,16 @@ point_teacher_tpu/inference.py). HBB: forward -> per-image top-k by
 max(score x centerness) -> decode -> multiclass NMS, and the multi-scale +
 flip test-time augmentation that merges every view's top-k by one NMS.
 Rotated (SODA-A): forward -> per-image top-k by the raw max class score ->
-DistanceAnglePointCoder decode -> rotated multiclass NMS.
+DistanceAnglePointCoder decode -> rotated multiclass NMS. The RFLA-FCOS
+baseline: its five levels (strides 8-128), each level's own top-k, then one
+multiclass NMS over all of them.
 
-Single stride-8 level. Everything is batched over the images: one forward,
+The Point-Teacher detectors have a single stride-8 level. Everything is batched over the images: one forward,
 one batched NMS (one host sync a chunk of candidates, not one an image).
 Returns fixed-shape padded detections: dets [B, max_per_img, 5] (rotated:
 6), labels, valid. The functions that build_inference_fn,
-build_rotated_inference_fn and build_tta_inference_fn return take the
+build_rotated_inference_fn, build_tta_inference_fn and
+build_rfla_inference_fn return take the
 module to run (the teacher, or the student) as their first argument and run
 it under no_grad, inside the profiler ranges `pt.infer/forward` and
 `pt.infer/nms`.
@@ -21,6 +24,7 @@ from typing import Dict, Sequence
 import torch
 from torch.autograd.profiler import record_function
 
+from .models.rfla_fcos_head import STRIDES
 from .ops.boxes import distance2bbox, grid_points
 from .ops.nms import multiclass_nms, multiclass_nms_rotated, stable_topk
 from .ops.rotated import distance_angle_decode
@@ -116,6 +120,41 @@ def build_inference_fn(cfg: InferenceCfg, img_size: int, stride: int = 8):
             with record_function("pt.infer/nms"):
                 return get_bboxes(*_flatten_head(outs), points, hw, scale_factors, cfg,
                                   img_shapes=img_shapes)
+
+    return infer
+
+
+def build_rfla_inference_fn(cfg: InferenceCfg, img_size: int):
+    """infer(model, images [B, S, S, 3], scale_factors [B, 4], img_shapes
+    [B, 2] or None) -> (dets [B, N, 5], labels [B, N], valid [B, N]) of an
+    RFLAFCOS: each level's nms_pre points by max(score x centerness)
+    (stable_topk), decoded and clamped to the image (img_shapes, or the
+    canvas), divided by the scale factor, then one multiclass NMS over the
+    levels' candidates with the centerness as score factors."""
+    hw = (img_size, img_size)
+
+    @torch.no_grad()
+    def infer(model, images: Tensor, scale_factors: Tensor, img_shapes: Tensor | None = None):
+        shapes = (img_shapes if img_shapes is not None else
+                  torch.tensor([hw], dtype=torch.float32, device=images.device)
+                  .expand(images.shape[0], 2))
+        with record_function("pt.infer"):
+            with record_function("pt.infer/forward"):
+                outs = model(images)
+            with record_function("pt.infer/nms"):
+                boxes_l, scores_l, ctr_l = [], [], []
+                for (cl, bb, ct), stride in zip(outs, STRIDES):
+                    n = -(-img_size // stride)
+                    points = grid_points(n, n, stride, device=images.device)
+                    scores, ctr, pts, dist = _topk_candidates(*_flatten_head((cl, bb, ct)),
+                                                              points, cfg.nms_pre)
+                    boxes = _clamp_to_shape(distance2bbox(pts, dist), shapes)
+                    boxes_l.append(boxes / scale_factors[:, None, :])
+                    scores_l.append(scores)
+                    ctr_l.append(ctr)
+                return multiclass_nms(torch.cat(boxes_l, 1), torch.cat(scores_l, 1),
+                                      cfg.score_thr, cfg.nms_iou, cfg.max_per_img,
+                                      score_factors=torch.cat(ctr_l, 1))
 
     return infer
 

@@ -17,10 +17,13 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     fan_in = w[0].numel()
     with torch.no_grad():
         w.normal_(generator=generator)
-        bad = w.abs() > 2
-        while bad.any():
-            w[bad] = torch.randn(int(bad.sum()), generator=generator, dtype=w.dtype)
-            bad = w.abs() > 2
+        flat = w.view(-1)
+        # redraw the samples beyond 2 sigma, in index order, until none is left
+        idx = (flat.abs() > 2).nonzero().squeeze(1)
+        while idx.numel():
+            draw = torch.randn(idx.numel(), generator=generator, dtype=w.dtype)
+            flat[idx] = draw
+            idx = idx[draw.abs() > 2]
         return w.mul_(math.sqrt(1.0 / fan_in) / _TRUNC_STD)
 
 

@@ -46,11 +46,11 @@ class GroupNorm(nn.Module):
 class ConvGN(nn.Module):
     """conv (no bias) + gn, under the `.conv` and `.gn` keys of mmcv's ConvModule."""
 
-    def __init__(self, c: int, generator: torch.Generator | None):
+    def __init__(self, c: int, generator: torch.Generator | None, eps: float = 1e-5):
         super().__init__()
         self.conv = nn.Conv2d(c, c, 3, padding=1, bias=False)
         init_conv_(self.conv, generator, std=0.01)
-        self.gn = GroupNorm(32, c)
+        self.gn = GroupNorm(32, c, eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.gn(self.conv(x))

@@ -1,5 +1,6 @@
 """Loss functions (counterpart of point_teacher_tpu/ops/losses.py, the members
-that train/dense_losses.py, train/rdense_losses.py and train/mil.py use)."""
+that train/dense_losses.py, train/rdense_losses.py, train/mil.py and the
+baselines' steps use)."""
 from __future__ import annotations
 
 import torch
@@ -73,6 +74,19 @@ def _diou_elem(pred: Tensor, target: Tensor, eps: float = 1e-7) -> Tensor:
 def diou_loss(pred: Tensor, target: Tensor, weight=None, avg_factor=None,
               eps: float = 1e-6) -> Tensor:
     return weight_reduce(_diou_elem(pred, target, eps), weight, avg_factor)
+
+
+def iou_loss(pred: Tensor, target: Tensor, weight=None, avg_factor=None,
+             eps: float = 1e-6) -> Tensor:
+    """IoULoss on aligned xyxy boxes: -log(IoU), the IoU clamped below at eps."""
+    lt = torch.maximum(pred[..., :2], target[..., :2])
+    rb = torch.minimum(pred[..., 2:4], target[..., 2:4])
+    wh = (rb - lt).clamp(min=0)
+    overlap = wh[..., 0] * wh[..., 1]
+    ap = (pred[..., 2] - pred[..., 0]) * (pred[..., 3] - pred[..., 1])
+    ag = (target[..., 2] - target[..., 0]) * (target[..., 3] - target[..., 1])
+    ious = (overlap / (ap + ag - overlap + eps)).clamp(min=eps)
+    return weight_reduce(-torch.log(ious), weight, avg_factor)
 
 
 def dn_diou_loss(pred: Tensor, target: Tensor, weight=None, avg_factor=None,

@@ -1,24 +1,26 @@
 """Evaluation entry point of the port (counterpart of tools/test.py).
 
   python -m point_teacher_torch.tools.test <config.py> [checkpoint]
-      [--synthetic-data N] [--student] [--out F.npz] [--tta-scales S1,S2]
-      [--tta-no-flip] [--cpu] [--cfg-options dataset.val_ann=... ...]
+      [--torch-ckpt REF.pth] [--synthetic-data N] [--student] [--out F.npz]
+      [--tta-scales S1,S2] [--tta-no-flip] [--cpu]
+      [--cfg-options dataset.val_ann=... ...]
 
-Runs the TEACHER of a checkpoint written by `point_teacher_torch.tools.train
---work-dir` (the student with --student; the seeded random init without a
-checkpoint) over the config's val set, or over N fabricated images with
+Runs the TEACHER of a checkpoint written by `point_teacher_torch.tools.train`
+(the student with --student; the seeded random init without a checkpoint),
+or one branch of a reference PyTorch teacher-student checkpoint with
+--torch-ckpt (utils/torch_port.py; not for the rfla_fcos trainer, as in the
+JAX CLI), over the config's val set, or over N fabricated images with
 --synthetic-data N, and prints the metrics table of the config's fork:
-- HBB (AI-TOD configs): the COCO-format val set; AI-TOD COCO-style metrics
-  (AP at IoU 0.25, vt/t/s/m buckets, oLRP); --tta-scales runs multi-scale +
-  flip test-time augmentation;
+- HBB (AI-TOD configs, the point_teacher, fcos and rfla_fcos trainers):
+  the COCO-format val set; AI-TOD COCO-style metrics (AP at IoU 0.25,
+  vt/t/s/m buckets, oLRP); --tta-scales runs multi-scale + flip test-time
+  augmentation (single-level detectors only);
 - rotated (sodaa_point_teacher_1x): the SODA-A patch set, each patch's
   detections merged into its original image by a rotated NMS; SODA-A
   rotated metrics (AP over IoU .5:.95, eS/rS/gS/Normal buckets, AR@20000);
   no TTA, as in the reference.
 The last line names the fork's headline: AP@0.25, or AP .5:.95. Runs on the
 CUDA card unless --cpu is given; asked for CUDA without a card it raises.
-Loading a reference PyTorch checkpoint (--torch-ckpt of tools/test.py) is
-not ported.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 from ..config_io import apply_overrides, load_config
 from ..evalx.runner import build_infer, evaluate_detector
 from ..utils.checkpoint import load_weights
+from ..utils.torch_port import load_reference_ts_checkpoint
 from .train import build_model, resolve_device
 
 
@@ -43,6 +46,10 @@ def parse_args(argv=None):
                     help="evaluate on N fabricated images instead of the config's val set")
     ap.add_argument("--student", action="store_true",
                     help="evaluate the student instead of the teacher")
+    ap.add_argument("--torch-ckpt", default=None,
+                    help="load a reference PyTorch teacher-student checkpoint (.pth) "
+                         "instead of a checkpoint of this port (the teacher branch, or the "
+                         "student with --student)")
     ap.add_argument("--out", help="write the detections (npz)")
     ap.add_argument("--tta-scales", default=None, metavar="S1,S2",
                     help="comma-separated square canvas sizes for multi-scale TTA")
@@ -55,13 +62,21 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
     pt, rotated = cfg["pt"], bool(cfg.get("rotated"))
-    if rotated and args.tta_scales:
-        raise SystemExit("--tta-scales covers the HBB path only")
+    trainer = cfg.get("trainer", "point_teacher")
+    if args.torch_ckpt and trainer == "rfla_fcos":
+        raise SystemExit("--torch-ckpt supports the point_teacher trainer only (the loader "
+                         "fills StudentFCOS / StudentRotatedFCOS, not RFLAFCOS)")
+    if args.tta_scales and (rotated or trainer == "rfla_fcos"):
+        raise SystemExit("--tta-scales covers the HBB path only (single-level detectors)")
     device = resolve_device(args.cpu)
-    infer = build_infer(pt, rotated)
+    infer = build_infer(pt, rotated, trainer)
     model = build_model(cfg, 0, device)
-    if args.checkpoint:
-        branch = "student" if args.student else "teacher"
+    branch = "student" if args.student else "teacher"
+    if args.torch_ckpt:
+        load_reference_ts_checkpoint(model, args.torch_ckpt, branch, rotated=rotated,
+                                     num_stages=pt.num_stages)
+        print(f"loaded reference torch checkpoint {args.torch_ckpt} ({branch} branch)")
+    elif args.checkpoint:
         load_weights(model, args.checkpoint, branch)
         print(f"loaded the {branch} of {args.checkpoint}")
     else:

@@ -1,10 +1,11 @@
 """Train state of the teacher-student pair (counterpart of
 point_teacher_tpu/train/state.py).
 
-The teacher is a second StudentFCOS holding the EMA weights; the per-image
+The teacher is a second detector holding the EMA weights; the per-image
 point caches are dense [num_images, G, 2] tensors on the device, indexed by
-an integer image id. The step updates the modules, the optimizer and the
-caches in place.
+an integer image id and sized by the dataset's image count (the baselines
+carry them too, unused, as the JAX state does). The step updates the
+modules, the optimizer and the caches in place.
 """
 from __future__ import annotations
 
@@ -13,8 +14,8 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch import nn
 
-from ..models.detector import StudentFCOS
 from .config import OptimCfg
 from .optim import PointTeacherSGD
 
@@ -32,8 +33,8 @@ class Batch(NamedTuple):
 @dataclass
 class TrainState:
     step: int
-    student: StudentFCOS
-    teacher: StudentFCOS
+    student: nn.Module
+    teacher: nn.Module
     optimizer: PointTeacherSGD
     origin_points: Tensor    # [N_images, G, 2]
     refined_points: Tensor   # [N_images, G, 2]
@@ -41,7 +42,7 @@ class TrainState:
     generator: torch.Generator  # source of the step's random draws
 
 
-def create_train_state(student: StudentFCOS, optim_cfg: OptimCfg, num_images: int,
+def create_train_state(student: nn.Module, optim_cfg: OptimCfg, num_images: int,
                        max_gt: int, seed: int = 0) -> TrainState:
     """The teacher starts as a copy of the student; caches on the student's device."""
     dev = next(student.parameters()).device

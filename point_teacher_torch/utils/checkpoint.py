@@ -5,12 +5,14 @@ One `torch.save` file holds the TrainState: the step, student and teacher
 weights, the optimizer's update count and momentum, the three point caches
 and the generator's state. Beside it, `<path>.meta.json` holds what a
 loader must know before it can build the state to load into: num_images
-(the point caches' length).
+(the point caches' length), and, from the training CLI, the epoch and step
+(and val_mAP for best.pth).
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 
 import torch
 
@@ -20,6 +22,9 @@ from ..train.state import TrainState
 def save_checkpoint(state: TrainState, path: str, meta: dict | None = None) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     opt = state.optimizer
+    # written aside and renamed: a checkpoint that another name links to
+    # (link_checkpoint) is replaced, never rewritten in place
+    tmp = path + ".tmp"
     torch.save({
         "step": state.step,
         "student": state.student.state_dict(),
@@ -29,10 +34,28 @@ def save_checkpoint(state: TrainState, path: str, meta: dict | None = None) -> N
         "refined_points": state.refined_points,
         "points_cached": state.points_cached,
         "generator": state.generator.get_state(),
-    }, path)
+    }, tmp)
+    os.replace(tmp, path)
     if meta is not None:
         with open(path + ".meta.json", "w") as f:
             json.dump(meta, f)
+
+
+def link_checkpoint(src: str, dst: str) -> None:
+    """`dst` (and its meta) become the checkpoint `src`, as a hard link where
+    the file system allows it, else a copy. The old `dst` is replaced by a
+    rename, so a file that another name links to is never rewritten."""
+    for a, b in ((src, dst), (src + ".meta.json", dst + ".meta.json")):
+        if not os.path.exists(a):
+            continue
+        tmp = b + ".tmp"
+        if os.path.lexists(tmp):
+            os.remove(tmp)
+        try:
+            os.link(a, tmp)
+        except OSError:
+            shutil.copyfile(a, tmp)
+        os.replace(tmp, b)
 
 
 @torch.no_grad()

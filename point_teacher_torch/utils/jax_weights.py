@@ -4,7 +4,9 @@ inverse of point_teacher_tpu/utils/torch_port.py, numpy only).
 Conv kernels HWIO -> OIHW, Dense [I, O] -> [O, I], FrozenBN scale / bias /
 mean / var -> weight / bias / running_mean / running_var, the FCOS Scale; for
 StudentRotatedFCOS also the GroupNorm scale / bias of the head towers
-(cls_gn{i}, reg_gn{i}), conv_angle and scale_angle.
+(cls_gn{i}, reg_gn{i}), conv_angle and scale_angle; for RFLAFCOS (no PSAGG,
+no MIL towers) the GroupNorm towers and the per-level scales, one flax
+vector `scales` [L] into the reference's `scales.{i}.scale`.
 The first MIL-tower Dense flattens roi features (H, W, C) in flax; the port
 keeps the reference torch order (C, H, W), so its input rows are permuted.
 """
@@ -66,7 +68,7 @@ def _entries(p: Dict[str, Any], num_stages: int) -> Iterator[Tuple[str, Dict[str
         yield f"neck.fpn_convs.{i}.conv", _conv(neck[f"fpn_conv{i}"])
     for i in range(sum(1 for k in neck if k.startswith("extra_conv"))):
         yield f"neck.fpn_convs.{n_lat + i}.conv", _conv(neck[f"extra_conv{i}"])
-    for name, tree in p["neck_agg"].items():
+    for name, tree in p.get("neck_agg", {}).items():
         yield f"neck_agg.lateral_convs.{name[len('agg_conv'):]}.conv", _conv(tree)
     head = p["bbox_head"]
     for name, tree in head.items():
@@ -79,9 +81,15 @@ def _entries(p: Dict[str, Any], num_stages: int) -> Iterator[Tuple[str, Dict[str
                                                      "bias": np.asarray(tree["bias"])}
         elif name.startswith("conv_"):
             yield f"bbox_head.{name}", _conv(tree)
-    yield "bbox_head.scales.0", {"scale": np.asarray(head["scale"])}
+    if "scales" in head:
+        for i, scale in enumerate(np.asarray(head["scales"])):
+            yield f"bbox_head.scales.{i}", {"scale": np.asarray(scale)}
+    else:
+        yield "bbox_head.scales.0", {"scale": np.asarray(head["scale"])}
     if "scale_angle" in head:
         yield "bbox_head.scale_angle", {"scale": np.asarray(head["scale_angle"])}
+    if "mil_head" not in p:
+        return
     mil = p["mil_head"]
     for s in range(num_stages):
         for tower, dst in ((f"reg_tower{s}", "shared_fcs_reg"), (f"bag_tower{s}", "shared_fcs_bag")):
@@ -92,7 +100,7 @@ def _entries(p: Dict[str, Any], num_stages: int) -> Iterator[Tuple[str, Dict[str
 
 
 def port_arrays(params: Dict[str, Any], num_stages: int = 1) -> Dict[str, np.ndarray]:
-    """A flax StudentFCOS or StudentRotatedFCOS tree (`{"params": ...}` or its
+    """A flax StudentFCOS, StudentRotatedFCOS or RFLAFCOS tree (`{"params": ...}` or its
     inner dict, leaves array-like) as {port parameter name: array in the
     port's layout}."""
     p = params.get("params", params)
@@ -102,11 +110,12 @@ def port_arrays(params: Dict[str, Any], num_stages: int = 1) -> Dict[str, np.nda
 
 @torch.no_grad()
 def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> nn.Module:
-    """Copy a flax StudentFCOS / StudentRotatedFCOS tree into `model` in
-    place. Every port parameter must be filled."""
+    """Copy a flax StudentFCOS / StudentRotatedFCOS / RFLAFCOS tree into
+    `model` in place. Every port parameter must be filled."""
     own = dict(model.named_parameters())
     filled = set()
-    for key, value in port_arrays(params, len(model.bbox_head.fc_reg)).items():
+    num_stages = len(getattr(model.bbox_head, "fc_reg", ()))
+    for key, value in port_arrays(params, num_stages).items():
         if key not in own:
             raise KeyError(f"flax leaf maps to unknown port parameter {key}")
         dst = own[key]

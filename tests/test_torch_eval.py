@@ -261,8 +261,8 @@ def test_cli_train_checkpoint_test_chain_on_cpu(tmp_path):
     out = _run(["point_teacher_torch.tools.train", CONFIG, "--cpu", "--synthetic-data", "4",
                 "--max-steps", "1", "--work-dir", str(tmp_path), *small])
     path = tmp_path / "latest.pth"
-    assert f"checkpoint: {path}" in out and path.exists()
-    assert ckpt.load_meta(str(path)) == dict(step=1, num_images=4)
+    assert f"saved checkpoint: {tmp_path / 'epoch_1.pth'}" in out and path.exists()
+    assert ckpt.load_meta(str(path)) == dict(epoch=1, step=1, num_images=4)
     npz = tmp_path / "dets.npz"
     out = _run(["point_teacher_torch.tools.test", CONFIG, str(path), "--cpu",
                 "--synthetic-data", "4", "--out", str(npz), *small])

@@ -39,6 +39,8 @@ def test_scan_sees_the_package():
     "inference", "apis", "data/__init__", "data/coco", "data/loader", "data/pipeline",
     "evalx/__init__", "evalx/cocoeval", "evalx/native", "evalx/runner",
     "utils/checkpoint", "tools/test",
-    "data/sodaa", "data/patch", "evalx/rgeometry", "evalx/sodaa"])
+    "data/sodaa", "data/patch", "evalx/rgeometry", "evalx/sodaa",
+    "utils/logging", "utils/torch_port", "train/fcos_baseline", "train/rfla_baseline",
+    "ops/tiny_metrics", "core/rfla", "models/rfla_fcos_head", "tools/train"])
 def test_scan_covers_the_eval_modules(module):
     assert f"point_teacher_torch/{module}.py" in FILES

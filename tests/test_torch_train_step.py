@@ -9,6 +9,7 @@ Every metric key, the updated student and teacher params, the point caches
 and the gate are compared; the JAX step is built once, and compiles once
 per phase. Also runs the port's training CLI on the CPU across the switch."""
 import os
+import shutil
 import subprocess
 import sys
 
@@ -303,14 +304,22 @@ def run_cli_across_the_switch(config):
     the first runs phase 1, the second phase 2 (the CLI's rule). Returns the
     two steps' JSON records."""
     import json
+    import tempfile
+    # the run's checkpoints go to a temporary work dir, not the config's
+    # work_dirs/ under the repository
+    work_dir = tempfile.mkdtemp()
     cmd = [sys.executable, "-m", "point_teacher_torch.tools.train",
            os.path.join(REPO, "configs/point_teacher", config),
-           "--cpu", "--synthetic-data", "4", "--max-steps", "2", "--cfg-options",
-           "pt.img_size=64", "pt.max_gt=6", "pt.burn_in_step=0"]
+           "--cpu", "--synthetic-data", "4", "--max-steps", "2", "--work-dir", work_dir,
+           "--cfg-options", "pt.img_size=64", "pt.max_gt=6", "pt.burn_in_step=0"]
     # one thread: beside the other test workers, torch's default of one
     # thread a core oversubscribes the CPU and slows the run several-fold
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                              env=env)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
     assert proc.returncode == 0, proc.stderr[-2000:]
     records = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
     assert [r["step"] for r in records] == [1, 2]
