@@ -73,11 +73,12 @@ Phases:
    suppress each other). For each: finite dets, scores descending, the
    kept boxes of each class overlapping by IoU <= 0.1 (+ 1e-3, recomputed
    on the card without the class offset), two runs bit-identical; the
-   forward, decode + NMS and the whole inference timed (CUDA events, median
-   of 10) and the peak memory; decode + NMS on the card against the CPU
-   from the same head outputs with nms_pre cut (one-shot: 1,800 candidates
-   an image, where any class score passes score_thr; dense also chunked:
-   2,160 in two chunks behind a full buffer of 150), as matched sets, a
+   forward timed (CUDA events, median of 10), decode + NMS and the whole
+   inference (median of 3: ~4.8 s a run) and the peak memory; decode + NMS
+   on the card against the CPU from the same head outputs with nms_pre cut
+   (one-shot: 1,800 candidates an image, where any class score passes
+   score_thr; dense also chunked: 2,160 in two chunks behind a full buffer
+   of 150), as matched sets, a
    row kept by one side only printed with its
    IoU to the box that decided it and failing unless that IoU lies within
    1e-4 of 0.1. Then the eval through the test CLI's main from phase 7's
@@ -111,12 +112,31 @@ Phases:
    6 / 13 chunks with live candidates), no RoIAlign launch.
    Then the SODA-A config for 2 steps (phase 1, then 2) from a divData
    train split at 1200 px, no validation: K3 / K4 3 / 3 then 2 / 2. Prints
-   the phase's own time.
+   the phase's own time;
+11. the learning check on the card: first K1 / K2 and K3 / K4 against
+   their plain versions (phase 3's checks and tolerances) at the pools a
+   point_teacher_torch.tools.sanity_train step gives them in f32: B=4, 4
+   GTs of its fabricated objects (make_visible_batch, make_visible_rbatch)
+   with the bags of its build_config (one proposal a GT, extensive ratios
+   1.0 / 1.2 / 0.8: 36 reg rois an image) and 16 negatives an image, built
+   by mil_rois / rotated_mil_rois, on a 16 x 16 map (128 px: the HBB group
+   window of 24 cells is the whole map) and a 32 x 32 map (256 px, where
+   the runs train); then sanity_train's run, in this
+   process, for the fcos trainer (800 steps at 256 px), the point_teacher
+   trainer and the rotated trainer (256 px, burn-in half the steps), all
+   from scratch (--frozen-stages 0), f32, each with the launch counts set
+   to 0 just before and read just after: each must exit 0 (LEARNING: OK,
+   the student's AP@0.25 up by more than 0.02); fcos launches no RoIAlign
+   kernel, point_teacher K1 / K2 3 / 3 a phase-1 step and 2 / 2 a phase-2
+   step and no K3 / K4, rotated the same with K3 / K4. Prints each run's
+   AP before and after (and the teacher's), steps a second, launches per
+   phase and the minimum pool coverage, and the phase's own time.
 
 Any failure ends the run with a nonzero exit. The last line is the JSON
 contract line; the line before it is the card's name and power limit, and
-the line before that the kernels JSON line (K1-K4; `max_abs_err` is the f32
-check's), after the run's total seconds.
+the line before that the kernels JSON line (K1-K4; `max_abs_err` is the
+largest of the f32 checks', phases 3 / 4 and 11), after the run's total
+seconds.
 """
 from __future__ import annotations
 
@@ -152,6 +172,7 @@ from point_teacher_torch.ops import roi_align as ra
 from point_teacher_torch.ops import roi_align_rotated as rr
 from point_teacher_torch.ops.masks import rasterize_rboxes
 from point_teacher_torch.ops.rotated import IOU_TILE_ROWS, rbox_iou, rbox_iou_tiled
+from point_teacher_torch.tools import sanity_train as sanity
 from point_teacher_torch.tools import test as test_cli
 from point_teacher_torch.tools import train as cli
 from point_teacher_torch.tools.profile_step import make_dense
@@ -196,31 +217,42 @@ def peaks(name: str):
     return PEAKS["SXM"]
 
 
-def mil_rois(seed: int, dev):
-    """Reg bags [B, 2500, 4], refined-bag + negative rois [B, 2700, 4] and their
-    group-window clamp bounds, built as the MIL stage builds them."""
+def mil_rois(seed: int, dev, boxes=None, cfgs=None, img: int = IMG, feat: int = FEAT,
+             window: int = 24):
+    """Reg bags, refined-bag + negative rois and their group-window clamp
+    bounds, built as the MIL stage builds them from `boxes` (xyxy [b, g, 4]
+    image px; by default B x G boxes of 4-16 px drawn from `seed`) with the
+    (fine, extensive) proposal configs `cfgs` (by default one proposal a GT,
+    EXT_RATIOS and NEG negatives an image) on an `img` px image, a `feat`
+    map and group windows of `window` cells. At the defaults: reg bags
+    [B, 2500, 4], cls + neg rois [B, 2700, 4]."""
     from point_teacher_torch.core.proposals import FineProposalCfg
     r = np.random.RandomState(seed)
-    cxy = r.uniform(12, IMG - 12, (B, G, 2))
-    wh = r.uniform(4, 16, (B, G, 2))
-    boxes = torch.tensor(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1), dtype=torch.float32,
-                         device=dev)
-    props, pv = fine_proposals(boxes, FineProposalCfg(), (IMG, IMG))
-    ext, _ = fine_proposals(props.reshape(B, G, 4), FineProposalCfg(EXT_RATIOS, None, 4.0),
-                            (IMG, IMG))
+    if boxes is None:
+        cxy = r.uniform(12, img - 12, (B, G, 2))
+        wh = r.uniform(4, 16, (B, G, 2))
+        boxes = torch.tensor(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1),
+                             dtype=torch.float32, device=dev)
+    fine, extensive = cfgs or (FineProposalCfg(gen_num_neg=NEG),
+                               FineProposalCfg(EXT_RATIOS, None, 4.0))
+    b, g = boxes.shape[:2]
+    props, pv = fine_proposals(boxes, fine, (img, img))
+    ext, _ = fine_proposals(props.reshape(b, g, 4), extensive, (img, img))
     u = ext.shape[2]
-    reg = ext.reshape(B, G * u, 4).contiguous()
+    reg = ext.reshape(b, g * u, 4).contiguous()
     # refined bags: the reg bags moved by a few pixels, as the reg tower does
     cls = (reg + torch.tensor(r.uniform(-3, 3, reg.shape), dtype=torch.float32,
                               device=dev)).contiguous()
-    neg_u = torch.tensor(r.uniform(size=(B, 4, NEG)), dtype=torch.float32, device=dev)
-    neg, _ = negative_proposals(neg_u, props, pv, (IMG, IMG))
+    neg_u = torch.tensor(r.uniform(size=(b, 4, fine.gen_num_neg)), dtype=torch.float32,
+                         device=dev)
+    neg, _ = negative_proposals(neg_u, props, pv, (img, img))
     ctr = (boxes[..., :2] + boxes[..., 2:]) / 2
-    wy0, wx0, win = ra.group_window_origins(ctr, (FEAT, FEAT), 24)
-    member = ra.window_clamp(wy0, wx0, win, (FEAT, FEAT))[:, :, None].expand(B, G, u, 4)
-    member = member.reshape(B, G * u, 4)
+    wy0, wx0, win = ra.group_window_origins(ctr, (feat, feat), window)
+    member = ra.window_clamp(wy0, wx0, win, (feat, feat))[:, :, None].expand(b, g, u, 4)
+    member = member.reshape(b, g * u, 4)
     cls_neg = torch.cat([cls, neg], 1).contiguous()
-    cls_neg_clamp = torch.cat([member, ra.full_map_clamp((B, NEG), (FEAT, FEAT), dev)], 1)
+    cls_neg_clamp = torch.cat([member, ra.full_map_clamp((b, fine.gen_num_neg), (feat, feat),
+                                                         dev)], 1)
     return reg, member.contiguous(), cls_neg, cls_neg_clamp.contiguous()
 
 
@@ -254,36 +286,46 @@ def timed(fn, reps: int = 20, warmup: int = 3) -> float:
 # rotated RoIAlign (K3 / K4), SODA-A shapes
 # --------------------------------------------------------------------------
 
-def rotated_mil_rois(seed: int, dev):
-    """Reg bags [B, 2500, 5], refined-bag + negative rois [B, 2700, 5] and
-    their clamp bounds, built as the rotated MIL stage builds them: members
-    share their GT's group window, negatives (angle 0) each get a window on
-    their own centre."""
+def rotated_mil_rois(seed: int, dev, rboxes=None, cfgs=None, img: int = RIMG,
+                     feat: int = RFEAT, window: int = RWIN):
+    """Reg bags, refined-bag + negative rois and their clamp bounds, built as
+    the rotated MIL stage builds them from `rboxes` ((cx, cy, w, h, a)
+    [b, g, 5] image px; by default B x G boxes of 4-16 px drawn from `seed`)
+    with the (fine, extensive) proposal configs `cfgs` (by default one
+    proposal a GT, REXT_RATIOS and NEG negatives an image) on an `img` px
+    image and a `feat` map: members share their GT's group window of
+    `window` cells, negatives (angle 0) each get a window on their own
+    centre. At the defaults: reg bags [B, 2500, 5], cls + neg [B, 2700, 5]."""
     from point_teacher_torch.core.proposals import FineProposalCfg
     from point_teacher_torch.ops.boxes import cxcywh_to_xyxy, xyxy_to_cxcywh
     r = np.random.RandomState(seed)
-    rb = np.concatenate([r.uniform(12, RIMG - 12, (B, G, 2)), r.uniform(4, 16, (B, G, 2)),
-                         r.uniform(-np.pi / 2, np.pi / 2, (B, G, 1))], -1)
-    rboxes = torch.tensor(rb, dtype=torch.float32, device=dev)
-    hw = (RIMG, RIMG)
-    props, pv = fine_proposals(cxcywh_to_xyxy(rboxes[..., :4]), FineProposalCfg(), hw)
-    ext, _ = fine_proposals(props.reshape(B, G, 4), FineProposalCfg(REXT_RATIOS, None, 4.0), hw)
+    if rboxes is None:
+        rb = np.concatenate([r.uniform(12, img - 12, (B, G, 2)), r.uniform(4, 16, (B, G, 2)),
+                             r.uniform(-np.pi / 2, np.pi / 2, (B, G, 1))], -1)
+        rboxes = torch.tensor(rb, dtype=torch.float32, device=dev)
+    fine, extensive = cfgs or (FineProposalCfg(gen_num_neg=NEG),
+                               FineProposalCfg(REXT_RATIOS, None, 4.0))
+    b, g = rboxes.shape[:2]
+    hw = (img, img)
+    props, pv = fine_proposals(cxcywh_to_xyxy(rboxes[..., :4]), fine, hw)
+    ext, _ = fine_proposals(props.reshape(b, g, 4), extensive, hw)
     u = ext.shape[2]
-    ang = rboxes[:, :, None, 4:5].expand(B, G, u, 1)
-    reg = torch.cat([xyxy_to_cxcywh(ext), ang], -1).reshape(B, G * u, 5).contiguous()
+    ang = rboxes[:, :, None, 4:5].expand(b, g, u, 1)
+    reg = torch.cat([xyxy_to_cxcywh(ext), ang], -1).reshape(b, g * u, 5).contiguous()
     # refined bags: the reg bags moved and resized by a few pixels, as the reg tower does
-    jitter = torch.tensor(np.concatenate([r.uniform(-3, 3, (B, G * u, 4)),
-                                          np.zeros((B, G * u, 1))], -1),
+    jitter = torch.tensor(np.concatenate([r.uniform(-3, 3, (b, g * u, 4)),
+                                          np.zeros((b, g * u, 1))], -1),
                           dtype=torch.float32, device=dev)
     cls = (reg + jitter).contiguous()
-    neg_u = torch.tensor(r.uniform(size=(B, 4, NEG)), dtype=torch.float32, device=dev)
+    neg_u = torch.tensor(r.uniform(size=(b, 4, fine.gen_num_neg)), dtype=torch.float32,
+                         device=dev)
     neg, _ = negative_proposals(neg_u, props, pv, hw)
     neg_rb = torch.cat([xyxy_to_cxcywh(neg), torch.zeros_like(neg[..., :1])], -1)
-    wy0, wx0, win = ra.group_window_origins(rboxes[..., :2], (RFEAT, RFEAT), RWIN)
-    member = ra.window_clamp(wy0, wx0, win, (RFEAT, RFEAT))[:, :, None].expand(B, G, u, 4)
-    member = member.reshape(B, G * u, 4).contiguous()
+    wy0, wx0, win = ra.group_window_origins(rboxes[..., :2], (feat, feat), window)
+    member = ra.window_clamp(wy0, wx0, win, (feat, feat))[:, :, None].expand(b, g, u, 4)
+    member = member.reshape(b, g * u, 4).contiguous()
     cls_neg = torch.cat([cls, neg_rb], 1).contiguous()
-    cls_neg_clamp = torch.cat([member, rr.roi_window_clamp(neg_rb, (RFEAT, RFEAT), RWIN)], 1)
+    cls_neg_clamp = torch.cat([member, rr.roi_window_clamp(neg_rb, (feat, feat), window)], 1)
     return reg, member, cls_neg, cls_neg_clamp.contiguous()
 
 
@@ -454,12 +496,12 @@ def check_family(fam: Family, dev, cases, seed: int, ch: int = CH):
     max|grad|) and bf16 (2e-2 x max|grad|, autograd in f32 on the bf16
     values), run twice (the run-to-run difference of the atomics), on a map
     of `ch` channels. A case is (name, rois, clamp, zero): dout is 0 on the
-    rois where the bool mask `zero` [B, N] is set. Returns the f32 errors
-    {"fwd", "bwd", "bwd_atomic"} (the last: the atomic backward, which runs
-    where clamp is None)."""
+    rois where the bool mask `zero` [B, N] is set; the map's batch is the
+    rois'. Returns the f32 errors {"fwd", "bwd", "bwd_atomic"} (the last:
+    the atomic backward, which runs where clamp is None)."""
     fwd_tag, bwd_tag = fam.tags
     torch.manual_seed(seed)
-    feat32 = torch.randn(B, fam.feat_hw, fam.feat_hw, ch, device=dev) * 4
+    feat32 = torch.randn(cases[0][1].shape[0], fam.feat_hw, fam.feat_hw, ch, device=dev) * 4
     fmax = float(feat32.abs().max())
     errs = {"fwd": 0.0, "bwd": 0.0, "bwd_atomic": 0.0}
     for dtype, ftol, gtol in ((torch.float32, 1e-5, 1e-4), (torch.bfloat16, 2e-2, 2e-2)):
@@ -474,7 +516,7 @@ def check_family(fam: Family, dev, cases, seed: int, ch: int = CH):
                   f"(atol {ftol * fmax:.3e})", flush=True)
             check(err <= ftol * fmax, f"{fwd_tag} {dtype} {name}: {err} > {ftol * fmax}")
             del got, want
-            dout = torch.randn(B, rois.shape[1], 7, 7, ch, device=dev).to(dtype)
+            dout = torch.randn(*rois.shape[:2], 7, 7, ch, device=dev).to(dtype)
             if zero is not None:
                 dout = dout.masked_fill(zero[..., None, None, None], 0)
             bwd_key = "bwd_atomic" if fam.atomic_without_clamp and clamp is None else "bwd"
@@ -1060,9 +1102,10 @@ def phase_rotated_inference(dev, state) -> None:
         n_valid = first[2].sum(-1).tolist()
         with torch.no_grad():
             fwd_ms = timed(lambda: model(images), reps=10)
-        # decode + NMS ran twice above, and the forward's warm-up: no more
-        nms_ms = timed(lambda: decode(heads, points, ones), reps=10, warmup=0)
-        infer_ms = timed(lambda: infer(model, images, ones), reps=10, warmup=0)
+        # decode + NMS ran twice above, and the forward's warm-up: no more; a
+        # median of 3 (each run ~4.8 s)
+        nms_ms = timed(lambda: decode(heads, points, ones), reps=3, warmup=0)
+        infer_ms = timed(lambda: infer(model, images, ones), reps=3, warmup=0)
         peak = torch.cuda.max_memory_allocated()
         print(f"rotated inference {case}: {above} of {B * RFEAT * RFEAT * pt.num_classes} class "
               f"scores above score_thr; {m} class-expanded candidates an image in {chunks} "
@@ -1486,12 +1529,96 @@ def _phase_cli(dev, root: str, fab) -> None:
     del sstate
 
 
+# --------------------------------------------------------------------------
+# the learning check (phase 11)
+# --------------------------------------------------------------------------
+
+# (trainer, flags): sanity_train runs from scratch, as many steps as the
+# smoke's time allows (PERF.md section 6 says which counts and why)
+LEARNING_RUNS = (
+    ("fcos", ["--steps", "800", "--img", "256"]),
+    ("point_teacher", ["--steps", "400", "--img", "256", "--burn-in-frac", "0.5"]),
+    ("rotated", ["--steps", "400", "--img", "256", "--burn-in-frac", "0.5"]),
+)
+
+
+def harness_cases(dev, img: int, rotated: bool):
+    """The two pools of a sanity_train step at `img` px (B=4, 4 GTs of its
+    fabricated objects, make_visible_batch or, `rotated`,
+    make_visible_rbatch), built by mil_rois / rotated_mil_rois from
+    build_config's proposal configs and pool window: the reg bags on their
+    GTs' group windows (24 cells HBB, the whole map at 128 px; 16 rotated),
+    and the cls bags with the 16 negatives an image (HBB on the whole map,
+    rotated each on its own window). Returns (feature side, cases)."""
+    args = sanity.parse_args(["--img", str(img)])
+    cfg = sanity.build_config(args)
+    make = sanity.make_visible_rbatch if rotated else sanity.make_visible_batch
+    _, boxes, _ = make(np.random.RandomState(img), args.batch, img, args.gt, args.classes)
+    boxes = torch.tensor(boxes, device=dev)
+    cfgs = (cfg.fine_proposal_cfg[0], cfg.fine_proposal_extensive_cfg[0])
+    if rotated:
+        pools = rotated_mil_rois(img + 1, dev, boxes, cfgs, img, cfg.feat_size,
+                                 cfg.mil_pool_window_rotated)
+    else:
+        pools = mil_rois(img + 1, dev, boxes, cfgs, img, cfg.feat_size, cfg.mil_pool_window)
+    reg, member, cls_neg, cls_neg_clamp = pools
+    return cfg.feat_size, [(f"harness{img} reg", reg, member, None),
+                           (f"harness{img} cls+neg", cls_neg, cls_neg_clamp, None)]
+
+
+def phase_learning(dev):
+    """Phase 11 (see the module docstring). Returns the f32 errors of the
+    K1 / K2 and of the K3 / K4 checks."""
+    t_phase = time.perf_counter()
+    errs = {False: [], True: []}
+    for img in (128, 256):
+        for rotated, fam in ((False, HBB), (True, ROT)):
+            feat, cases = harness_cases(dev, img, rotated)
+            errs[rotated].append(check_family(dataclasses.replace(fam, feat_hw=feat), dev,
+                                              cases, seed=img))
+    for trainer, flags in LEARNING_RUNS:
+        argv = ["--trainer", trainer, "--frozen-stages", "0", "--log-interval", "100", *flags]
+        torch.cuda.empty_cache()
+        ra.reset_launch_counts()
+        rr.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, out = run_cli(sanity.run, argv)
+        wall = time.perf_counter() - t0
+        counts = {"roi_align": ra.launch_counts(), "roi_align_rotated": rr.launch_counts()}
+        check(res["code"] == 0 and "LEARNING: OK" in out,
+              f"sanity_train {trainer}: exit code {res['code']}, AP {res['ap0']:.4f} -> "
+              f"{res['student_ap']:.4f}")
+        n = res["steps_per_phase"]
+        own = {"fcos": None, "point_teacher": "roi_align", "rotated": "roi_align_rotated"}[trainer]
+        for phase, per_step in ((1, 3), (2, 2)):
+            for mod, c in res["launches"][phase].items():
+                want = per_step * n[phase] if mod == own else 0
+                check(c == {"fwd": want, "bwd": want, "bwd_atomic": 0},
+                      f"sanity_train {trainer} phase {phase}: {mod} launches {c}, want "
+                      f"{want} / {want} over {n[phase]} steps")
+        total = {m: {k: res["launches"][1][m][k] + res["launches"][2][m][k] for k in c}
+                 for m, c in counts.items()}
+        check(total == counts, f"sanity_train {trainer}: launches {counts} read around the "
+                               f"run, {total} by phase")
+        teacher = "" if res["teacher_ap"] is None else f", teacher {res['teacher_ap']:.4f}"
+        cov = "" if trainer == "fcos" else (f"; min pool coverage {res['min_cov']:.4f} "
+                                            f"(phase 2: {res['min_cov_p2']:.4f})")
+        print(f"learning check {trainer} ({' '.join(argv)}): AP@0.25 {res['ap0']:.4f} -> "
+              f"student {res['student_ap']:.4f}{teacher}; {res['steps']} steps in "
+              f"{res['train_s']:.1f} s, {res['steps'] / res['train_s']:.3f} steps/s (the "
+              f"evaluations {res['eval_s']:.1f} s; the run {wall:.1f} s); launches phase 1 "
+              f"({n[1]} steps) {res['launches'][1]}, phase 2 ({n[2]} steps) "
+              f"{res['launches'][2]}{cov}", flush=True)
+    print(f"phase 11 total: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return merge_errs(*errs[False]), merge_errs(*errs[True])
+
+
 def build_all() -> None:
     """nvcc for both sources at once (one process each), with -Xptxas -v."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         logs = list(pool.map(lambda mod: mod.build(ptxas_verbose=True), (ra, rr)))
-    print(f"[2/10] build: {time.perf_counter() - t0:.1f} s -> {ra.LIBRARY}, {rr.LIBRARY} "
+    print(f"[2/11] build: {time.perf_counter() - t0:.1f} s -> {ra.LIBRARY}, {rr.LIBRARY} "
           f"(sm_90a)", flush=True)
     for mod, log in zip((ra, rr), logs):
         for line in log.splitlines():
@@ -1524,23 +1651,26 @@ def main():
     dev = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    print(f"[1/10] device: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
+    print(f"[1/11] device: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_all()
 
-    print("[3/10] K1 / K2 checks against the plain version (AI-TOD shapes)", flush=True)
+    def stage(k: int, text: str) -> None:
+        print(f"[{k}/11] {text} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    stage(3, "K1 / K2 checks against the plain version (AI-TOD shapes)")
     cases = hbb_cases(dev)
     errs = merge_errs(check_family(HBB, dev, cases, seed=0),
                       check_channels(HBB, dev, cases[2], seed=5))
-    print("[4/10] K3 / K4 checks against the plain version (SODA-A shapes)", flush=True)
+    stage(4, "K3 / K4 checks against the plain version (SODA-A shapes)")
     cases = rotated_cases(dev)
     rerrs = merge_errs(check_family(ROT, dev, cases, seed=1),
                        check_channels(ROT, dev, cases[1], seed=6))
     del cases
     torch.cuda.empty_cache()
-    print("[5/10] kernel timing (bf16, main-path shapes)", flush=True)
+    stage(5, "kernel timing (bf16, main-path shapes)")
     bw, f32_rate = peaks(name)
     reg, member, cls_neg, cls_neg_clamp = mil_rois(2, dev)
     shapes = [("reg_bags", reg, member), ("cls+neg", cls_neg, cls_neg_clamp)]
@@ -1553,7 +1683,7 @@ def main():
     del shapes, rshapes
     del reg, member, cls_neg, cls_neg_clamp
     torch.cuda.empty_cache()
-    print("[6/10] port checks", flush=True)
+    stage(6, "port checks")
     for phase1 in (False, True):
         phase_port_check(dev, "aitodv2_point_teacher_0.py", phase1)
         phase_port_check(dev, "sodaa_point_teacher_1x.py", phase1)
@@ -1561,7 +1691,7 @@ def main():
     phase_synthesis_check(dev, "sodaa_point_teacher_1x.py")
     # the main paths run as in training: the default precision settings
     torch.backends.cudnn.allow_tf32 = True
-    print("[7/10] main paths", flush=True)
+    stage(7, "main paths")
     launches, hbb_state, hbb_ms = phase_main_path(
         dev, HBB_CONFIG, ra, rr,
         frozen=["backbone.conv1.weight", "backbone.layer1.0.conv2.weight",
@@ -1580,16 +1710,21 @@ def main():
                    "bbox_head.cls_convs.0.gn.weight", "bbox_head.scale_angle.scale",
                    "bbox_head.shared_fcs_bag.0.0.weight"])
     torch.cuda.empty_cache()
-    print("[8/10] inference and eval", flush=True)
+    stage(8, "inference and eval")
     phase_inference(dev, hbb_state)
     del hbb_state
     torch.cuda.empty_cache()
-    print("[9/10] SODA-A inference and eval", flush=True)
+    stage(9, "SODA-A inference and eval")
     phase_rotated_inference(dev, sodaa_state)
     del sodaa_state
     torch.cuda.empty_cache()
-    print("[10/10] the CLI at parity", flush=True)
+    stage(10, "the CLI at parity")
     phase_cli(dev, hbb_ms)
+    torch.cuda.empty_cache()
+    # the learning runs train as sanity_train does: the default precision settings
+    stage(11, "the learning check (sanity_train)")
+    herrs, hrerrs = phase_learning(dev)
+    errs, rerrs = merge_errs(errs, herrs), merge_errs(rerrs, hrerrs)
 
     kernels = kernel_rows(launches, errs, rows, "point_teacher_torch/csrc/roi_align.cu", (
         ("roi_align_fwd", "fwd", 0, "point_teacher_tpu/ops/roi_align_pallas.py:49"),

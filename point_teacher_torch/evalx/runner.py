@@ -10,7 +10,9 @@ metrics: AP over IoU .5:.95, the eS/rS/gS/Normal buckets, AR@20000): the
 patch dataset (per-patch inference; each patch's detections translated
 into its original image and merged there by a per-class rotated NMS;
 scored against the original images' annotations, `dataset.ori_val_ann`)
-and a fabricated val set. `show_dir` is not ported yet.
+and a fabricated val set. With `show_dir` every evaluated image (each
+patch of the rotated patch set) is written there with its detections
+drawn by utils/visualize.py.
 """
 from __future__ import annotations
 
@@ -74,11 +76,33 @@ def _kept(d, l, v, b, width: int = 4):
     return d[b, keep, :width], d[b, keep, width], l[b, keep]
 
 
-def _patch_detections(infer, model, pt, cfg: Dict, tensor):
+def _drawer(show_dir: Optional[str], cfg: Dict, rotated: bool):
+    """draw(img, (boxes, scores, labels), name, denorm=True), which writes
+    `img` with the detections of score >= 0.3 drawn to show_dir/name (the
+    JAX runner's drawing); None without show_dir. With denorm the image is
+    de-normalised first by the config's dataset.img_norm, where it has one."""
+    if not show_dir:
+        return None
+    from ..utils.visualize import imshow_det_bboxes, imshow_det_rbboxes
+
+    norm = cfg.get("dataset", {}).get("img_norm")
+    fn = imshow_det_rbboxes if rotated else imshow_det_bboxes
+
+    def draw(img, dets, name: str, denorm: bool = True) -> None:
+        boxes, scores, labels = dets
+        if norm and denorm:
+            img = img * np.asarray(norm["std"]) + np.asarray(norm["mean"])
+        fn(img, boxes, labels, scores, score_thr=0.3, out_file=os.path.join(show_dir, name))
+
+    return draw
+
+
+def _patch_detections(infer, model, pt, cfg: Dict, tensor, draw=None):
     """The rotated dataset branch: per-patch inference over the config's
     SODA-A patch set, each patch's detections translated into its original
     image and merged there by a per-class rotated NMS. Returns (gt of the
-    original images, detections per original image)."""
+    original images, detections per original image). `draw` (_drawer's)
+    draws each patch's own detections under the patch's file name."""
     from ..data import EvalLoader, SODAADataset
     from .sodaa import merge_patch_detections
 
@@ -89,17 +113,22 @@ def _patch_detections(infer, model, pt, cfg: Dict, tensor):
     names, patch_dets = [], []
     for idxs, imgs, scales, _shapes in loader:
         d, l, v = (x.cpu().numpy() for x in infer(model, tensor(imgs), tensor(scales)))
-        names += [ds.infos[i]["filename"] for i in idxs]
-        patch_dets += [_kept(d, l, v, b, 5) for b in range(len(idxs))]
+        for b, i in enumerate(idxs):
+            names.append(ds.infos[i]["filename"])
+            patch_dets.append(_kept(d, l, v, b, 5))
+            if draw:
+                draw(imgs[b], patch_dets[-1], names[-1])
     merged = merge_patch_detections(names, patch_dets, pt.num_classes)
     gt = ds.ori_gt()
     empty = (np.zeros((0, 5), np.float32), np.zeros(0), np.zeros(0))
     return gt, [merged.get(name.rsplit(".", 1)[0], empty) for name in gt["img_ids"]]
 
 
-def _tta_detections(model, pt, cfg: Dict, synthetic_n: int, tta: Dict, tensor):
+def _tta_detections(model, pt, cfg: Dict, synthetic_n: int, tta: Dict, tensor, draw=None):
     """The HBB multi-scale + flip branch: each image's views merged by one
-    NMS. Returns (gt, detections per image, the header's note)."""
+    NMS. Returns (gt, detections per image, the header's note). `draw`
+    (_drawer's) draws each image as read (raw pixels: the views are
+    normalised inside make_tta_views) with its merged detections."""
     from ..data.pipeline import make_tta_views
     from ..inference import build_tta_inference_fn
 
@@ -111,6 +140,7 @@ def _tta_detections(model, pt, cfg: Dict, synthetic_n: int, tta: Dict, tensor):
     if synthetic_n:
         batches, gt = synthetic_val_set(pt, synthetic_n, False)
         imgs_iter = (img[b] for img in batches for b in range(img.shape[0]))
+        names = [f"img{i}.jpg" for i in range(synthetic_n)]
     else:
         from ..data import AITODDataset
         from ..data.pipeline import load_image
@@ -119,13 +149,22 @@ def _tta_detections(model, pt, cfg: Dict, synthetic_n: int, tta: Dict, tensor):
                           filter_empty=False)
         gt = ds.coco_gt()
         imgs_iter = (load_image(ds.image_path(i)) for i in range(len(ds)))
+        names = [_file_name(ds, i) for i in range(len(ds))]
     dets_per_img = []
-    for img_np in imgs_iter:
+    for n, img_np in enumerate(imgs_iter):
+        img_np = np.asarray(img_np, np.float32)
         views = [{k: tensor(v) for k, v in view.items()} for view in
-                 make_tta_views(np.asarray(img_np, np.float32), scales, flip, img_norm=norm)]
+                 make_tta_views(img_np, scales, flip, img_norm=norm)]
         d, l, v = (x.cpu().numpy() for x in tta_fn(model, views))
         dets_per_img.append(_kept(d, l, v, 0))
+        if draw:
+            draw(img_np, dets_per_img[-1], names[n], denorm=False)
     return gt, dets_per_img, f", TTA scales={list(scales)} flip={flip}"
+
+
+def _file_name(ds, i: int) -> str:
+    """The drawn file's name of image i of an AITODDataset."""
+    return os.path.basename(ds.img_infos[i].get("file_name", f"img{i}.jpg"))
 
 
 def evaluate_detector(
@@ -152,10 +191,13 @@ def evaluate_detector(
     does (the reference's rotated configs run single-scale). out: write the
     detections to an npz, one [K, 6] array (box, score, label) an image,
     [K, 7] rotated (for the patch set: an original image's merged
-    detections)."""
-    if show_dir:
-        raise NotImplementedError("show_dir needs utils/visualize.py, which is not ported "
-                                  "yet (ROADMAP.md queue 5)")
+    detections). show_dir: write each evaluated image with its detections
+    of score >= 0.3 drawn (utils/visualize.py), under the JAX runner's
+    names: a fabricated set's img{i}.jpg, an on-disk image's file name, a
+    rotated patch's file name (its own detections, before the merge);
+    normalised images are de-normalised by the config's dataset.img_norm,
+    and TTA draws each image as read with its merged detections (the
+    --show-dir of the reference's tools/test.py)."""
     if rotated and tta is not None:
         raise ValueError("TTA covers the HBB path only (the reference's rotated configs run "
                          "single-scale without flip)")
@@ -165,8 +207,10 @@ def evaluate_detector(
         return torch.as_tensor(np.asarray(x), device=dev)
 
     header = ROTATED_HEADER if rotated else HBB_HEADER
+    draw = _drawer(show_dir, cfg, rotated)
     if tta is not None:
-        gt, dets_per_img, note = _tta_detections(model, pt, cfg, synthetic_n, tta, tensor)
+        gt, dets_per_img, note = _tta_detections(model, pt, cfg, synthetic_n, tta, tensor,
+                                                 draw)
         header += note
     elif synthetic_n:
         batches, gt = synthetic_val_set(pt, synthetic_n, rotated)
@@ -174,10 +218,12 @@ def evaluate_detector(
         for img in batches:
             d, l, v = (x.cpu().numpy() for x in
                        infer(model, tensor(img), torch.ones((img.shape[0], 4), device=dev)))
-            dets_per_img += [_kept(d, l, v, b, 5 if rotated else 4)
-                             for b in range(img.shape[0])]
+            for b in range(img.shape[0]):
+                dets_per_img.append(_kept(d, l, v, b, 5 if rotated else 4))
+                if draw:
+                    draw(img[b], dets_per_img[-1], f"img{len(dets_per_img) - 1}.jpg")
     elif rotated:
-        gt, dets_per_img = _patch_detections(infer, model, pt, cfg, tensor)
+        gt, dets_per_img = _patch_detections(infer, model, pt, cfg, tensor, draw)
         header += ", patches merged per original image"
     else:
         from ..data import AITODDataset, EvalLoader
@@ -190,7 +236,10 @@ def evaluate_detector(
         for idxs, imgs, scales, shapes in loader:
             d, l, v = (x.cpu().numpy() for x in
                        infer(model, tensor(imgs), tensor(scales), tensor(shapes)))
-            dets_per_img += [_kept(d, l, v, b) for b in range(len(idxs))]
+            for b, i in enumerate(idxs):
+                dets_per_img.append(_kept(d, l, v, b))
+                if draw:
+                    draw(imgs[b], dets_per_img[-1], _file_name(ds, i))
         gt = ds.coco_gt()
 
     if out:

@@ -2,7 +2,7 @@
 
   python -m point_teacher_torch.tools.test <config.py> [checkpoint]
       [--torch-ckpt REF.pth] [--synthetic-data N] [--student] [--out F.npz]
-      [--tta-scales S1,S2] [--tta-no-flip] [--cpu]
+      [--tta-scales S1,S2] [--tta-no-flip] [--show-dir DIR] [--cpu]
       [--cfg-options dataset.val_ann=... ...]
 
 Runs the TEACHER of a checkpoint written by `point_teacher_torch.tools.train`
@@ -19,6 +19,8 @@ JAX CLI), over the config's val set, or over N fabricated images with
   detections merged into its original image by a rotated NMS; SODA-A
   rotated metrics (AP over IoU .5:.95, eS/rS/gS/Normal buckets, AR@20000);
   no TTA, as in the reference.
+--show-dir DIR writes each evaluated image (each patch of the SODA-A patch
+set) with its detections of score >= 0.3 drawn (utils/visualize.py).
 The last line names the fork's headline: AP@0.25, or AP .5:.95. Runs on the
 CUDA card unless --cpu is given; asked for CUDA without a card it raises.
 """
@@ -51,6 +53,7 @@ def parse_args(argv=None):
                          "instead of a checkpoint of this port (the teacher branch, or the "
                          "student with --student)")
     ap.add_argument("--out", help="write the detections (npz)")
+    ap.add_argument("--show-dir", help="write annotated detection images to DIR")
     ap.add_argument("--tta-scales", default=None, metavar="S1,S2",
                     help="comma-separated square canvas sizes for multi-scale TTA")
     ap.add_argument("--tta-no-flip", action="store_true",
@@ -88,7 +91,8 @@ def main(argv=None):
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     t0 = time.perf_counter()
     ap, _ = evaluate_detector(infer, model, pt, cfg, rotated=rotated,
-                              synthetic_n=args.synthetic_data, out=args.out, tta=tta)
+                              synthetic_n=args.synthetic_data, out=args.out,
+                              show_dir=args.show_dir, tta=tta)
     headline = "AP .5:.95" if rotated else "mAP@0.25"
     print(f"\n{headline} {ap:.4f}; eval {time.perf_counter() - t0:.2f} s on {name}")
     return ap

@@ -291,7 +291,7 @@ def test_test_cli_and_api_ask_for_cuda_without_a_card():
 def test_rotated_eval_raises_not_implemented():
     """What the eval still refuses: TTA of the rotated detector (as the JAX
     package does: the reference's rotated configs run single-scale), through
-    the runner and the API, and show_dir (ROADMAP.md queue 5)."""
+    the runner and the API. (show_dir is ported: test_torch_visualize.py.)"""
     ppt, _ = _pts()
     with pytest.raises(ValueError, match="HBB path only"):
         prunner.evaluate_detector(None, torch.nn.Linear(1, 1), ppt, {}, rotated=True,
@@ -299,10 +299,6 @@ def test_rotated_eval_raises_not_implemented():
     det = papis.Detector(torch.nn.Linear(1, 1), None, ("a",), IMG, InferenceCfg(), rotated=True)
     with pytest.raises(NotImplementedError, match="HBB path"):
         papis.inference_detector_tta(det, np.zeros((8, 8, 3), np.float32))
-    for rotated in (False, True):
-        with pytest.raises(NotImplementedError, match="queue 5"):
-            prunner.evaluate_detector(None, torch.nn.Linear(1, 1), ppt, {}, rotated=rotated,
-                                      synthetic_n=2, show_dir="x")
 
 
 def test_test_settings_and_overrides_match_jax():

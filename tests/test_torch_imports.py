@@ -41,6 +41,9 @@ def test_scan_sees_the_package():
     "utils/checkpoint", "tools/test",
     "data/sodaa", "data/patch", "evalx/rgeometry", "evalx/sodaa",
     "utils/logging", "utils/torch_port", "train/fcos_baseline", "train/rfla_baseline",
-    "ops/tiny_metrics", "core/rfla", "models/rfla_fcos_head", "tools/train"])
+    "ops/tiny_metrics", "core/rfla", "models/rfla_fcos_head", "tools/train",
+    "core/hungarian", "utils/visualize", "demo/image_demo", "demo/huge_image_demo",
+    "tools/img_split", "tools/analysis_tools/get_flops", "tools/analysis_tools/benchmark",
+    "tools/sanity_train"])
 def test_scan_covers_the_eval_modules(module):
     assert f"point_teacher_torch/{module}.py" in FILES
