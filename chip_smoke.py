@@ -130,23 +130,46 @@ Phases:
    kernel, point_teacher K1 / K2 3 / 3 a phase-1 step and 2 / 2 a phase-2
    step and no K3 / K4, rotated the same with K3 / K4. Prints each run's
    AP before and after (and the teacher's), steps a second, launches per
-   phase and the minimum pool coverage, and the phase's own time.
+   phase and the minimum pool coverage, and the phase's own time;
+12. data parallel (point_teacher_torch/parallel): the card's compute mode
+   and its name and power limit, then (a) a world of one rank over NCCL:
+   the HBB config at full width (800 px, B=2, bf16) through the CLI's train
+   function, a phase-1 then a phase-2 step, twice in this process and once
+   in the world from the same seed: the world's metrics and student within
+   twice the spread of the two one-process runs, K1 / K2 3 / 3 then 2 / 2
+   in each run; (b) a world of two ranks on the one card over gloo with
+   CUDA tensors, spawned by parallel/launch.py, each rank on one image of a
+   global batch of 2: HBB and SODA-A at full width (f32 with TF32 off and
+   conditioned, as phase 6), a phase-1 then a phase-2 step, every metric
+   within rtol 1e-3 of this process's step on the global batch from the
+   same weights and draws (beside the spread of two such one-process runs),
+   student, teacher, optimizer state and caches bit-equal across the
+   ranks, K1 / K2 (K3 / K4) 3 / 3 then 2 / 2 on each rank, read around each
+   step; (c) tools.test main sharded over the two ranks on 8 fabricated
+   800 px images (the HBB state of (b), every candidate kept): the AP@0.25
+   table equal to one process's, as many detections an image, each image's
+   sorted scores within 1e-3. Prints each rank's step ms beside one
+   process's and the phase's own time. With a compute mode other than
+   Default, (b) and (c) cannot run and say so.
 
-Any failure ends the run with a nonzero exit. The last line is the JSON
-contract line; the line before it is the card's name and power limit, and
-the line before that the kernels JSON line (K1-K4; `max_abs_err` is the
-largest of the f32 checks', phases 3 / 4 and 11), after the run's total
-seconds.
+`--only 12` runs phases 1, 2 and 12 and prints no result line (for work on
+that phase). Any failure ends the run with a nonzero exit. The last line
+is the JSON contract line; the line before it is the card's name and power
+limit, and the line before that the kernels JSON line (K1-K4; `max_abs_err`
+is the largest of the f32 checks', phases 3 / 4 and 11), after the run's
+total seconds.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import io
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -172,6 +195,7 @@ from point_teacher_torch.ops import roi_align as ra
 from point_teacher_torch.ops import roi_align_rotated as rr
 from point_teacher_torch.ops.masks import rasterize_rboxes
 from point_teacher_torch.ops.rotated import IOU_TILE_ROWS, rbox_iou, rbox_iou_tiled
+from point_teacher_torch.parallel import dist, launch
 from point_teacher_torch.tools import sanity_train as sanity
 from point_teacher_torch.tools import test as test_cli
 from point_teacher_torch.tools import train as cli
@@ -1235,10 +1259,12 @@ def write_aitod_layout(root: str, seed: int = 0, n_train: int = 8, n_val: int = 
 class StepProbe:
     """Wraps the CLI's build_step so that each step of a run records its
     phase, the launches of `kernels` and of `others` it made, its wall
-    (synchronised, host clock) and the time it ended."""
+    (synchronised, host clock) and the time it ended; with `metrics`, also
+    its metrics."""
 
-    def __init__(self, kernels, others):
+    def __init__(self, kernels, others, metrics: bool = False):
         self.kernels, self.others, self.rows = kernels, others, []
+        self.metrics = metrics
 
     def __enter__(self):
         self.orig = cli.build_step
@@ -1258,6 +1284,8 @@ class StepProbe:
                     phase1=phase1, step_ms=(t1 - t0) * 1e3, end=t1,
                     launches={k: v - c0[0][k] for k, v in c1[0].items()},
                     others=sum(c1[1].values()) - sum(c0[1].values())))
+                if self.metrics:
+                    self.rows[-1]["metrics"] = {k: float(v) for k, v in metrics.items()}
                 return metrics
 
             return step
@@ -1613,12 +1641,275 @@ def phase_learning(dev):
     return merge_errs(*errs[False]), merge_errs(*errs[True])
 
 
+# --------------------------------------------------------------------------
+# data parallel (phase 12)
+# --------------------------------------------------------------------------
+
+def compute_mode() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else f"unknown ({out.stderr})"
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def state_digests(state) -> dict:
+    trace = [t for k in ("base", "bias") for t in state.optimizer.trace[k]]
+    return dict(student=digest(state.student.state_dict().values()),
+                teacher=digest(state.teacher.state_dict().values()), optimizer=digest(trace),
+                caches=digest((state.origin_points, state.refined_points, state.points_cached)))
+
+
+def dp_chain(config: str, dev):
+    """A phase-1 then a phase-2 step of `config` at full width (f32 with
+    TF32 off, as phase 6: a bf16 ulp is 4e-3, and a rank's batch-1
+    convolutions round otherwise than the batch-2 ones; the CLI's setup, the
+    seeded init conditioned as phase 6 conditions it) on
+    the first two fabricated global batches of 2, through its step with the
+    state's own draws; in a world, on this rank's rows. The launch counts
+    are set to 0 before and read around each step. Returns the steps'
+    (phase1, metrics, ms, launches) and the state."""
+    cfg = apply_overrides(load_config(os.path.join(ROOT, config)), ["pt.burn_in_step=0"])
+    rotated = bool(cfg.get("rotated"))
+    kernels = rr if rotated else ra
+    pt, state, step_fn = cli.setup(cfg, 4, 0, dev, dtype=torch.float32)
+    condition(state)
+    rows = dist.rank_rows(pt.batch_size)
+    batches = cli.synthetic_dataset(4, pt, 0, rotated=rotated)(pt.batch_size)
+    ra.reset_launch_counts()
+    rr.reset_launch_counts()
+    out = []
+    for _ in range(2):
+        batch = cli.to_batch({k: v[rows] for k, v in next(batches).items()}, dev)
+        phase1 = cli.is_phase1(state.step, pt.burn_in_step)
+        c0 = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step_fn(state, batch, phase1=phase1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out.append(dict(phase1=phase1, ms=ms, metrics={k: float(v) for k, v in metrics.items()},
+                        launches={k: v - c0[k] for k, v in kernels.launch_counts().items()}))
+    return out, state
+
+
+DP_EVAL = ["--synthetic-data", "8", "--cfg-options", "pt.test.score_thr=0.0"]
+DP_DEVICE = "cuda"   # the ranks' device: both on the one card
+
+
+def dp_rank(out_dir: str) -> None:
+    """One rank of phase 12 (b) and (c), on the one card over gloo: the
+    HBB and the SODA-A chain on this rank's image, the digests of each
+    state, then tools.test main on the HBB state (rank 0 saves it) over 8
+    fabricated images, every candidate kept; results to out_dir/rank{r}.json."""
+    dev = torch.device(DP_DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r = dist.rank()
+    res = {}
+    ckpt = os.path.join(out_dir, "hbb.pth")
+    for name, config in (("hbb", HBB_CONFIG), ("sodaa", SODAA_CONFIG)):
+        steps, state = dp_chain(config, dev)
+        res[name] = dict(steps=steps, digests=state_digests(state))
+        if name == "hbb":
+            save_checkpoint(state, ckpt, meta=dict(step=state.step, num_images=4))
+        del state
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, out = run_cli(test_cli.main, [os.path.join(ROOT, HBB_CONFIG), ckpt, "--out",
+                                     os.path.join(out_dir, "world.npz"), *DP_EVAL])
+    res["eval"] = dict(out=out, s=time.perf_counter() - t0)
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def eval_table(out: str) -> list:
+    """A tools.test output's metrics table, from its header to the headline."""
+    lines = out.splitlines()
+    start = next(i for i, line in enumerate(lines) if line.startswith("--- "))
+    end = next(i for i, line in enumerate(lines) if line.startswith(("mAP@0.25 ", "AP .5:.95 ")))
+    return lines[start:end] + [lines[end].split(";")[0]]
+
+
+def phase_nccl_world1(dev) -> None:
+    """Phase 12 (a): the HBB config through the CLI's train function,
+    burn_in_step 0 (a phase-1, then a phase-2 step), twice in one process
+    and once in a world of one rank over NCCL from the same seed; the
+    world's metrics and student within twice the spread of the two runs,
+    K1 / K2 3 / 3 then 2 / 2 in each run."""
+    cfg = apply_overrides(load_config(os.path.join(ROOT, HBB_CONFIG)), ["pt.burn_in_step=0"])
+    work = os.path.join(ROOT, "build", "smoke_dp")
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1")
+    runs = {}
+    try:
+        for name in ("one", "one_again", "nccl1"):
+            if name == "nccl1":
+                os.environ.update(env, MASTER_PORT=str(free_port()))
+                dist.init_from_env(cli.resolve_device(False))
+                check(dist.active() and dist.world() == 1
+                      and torch.distributed.get_backend() == "nccl",
+                      "phase 12: no NCCL world of one rank")
+            try:
+                torch.cuda.empty_cache()
+                ra.reset_launch_counts()
+                rr.reset_launch_counts()
+                with StepProbe(ra, rr, metrics=True) as probe:
+                    state, _ = run_cli(lambda argv: cli.train(cfg, work, 0, dev, 4, 2), [])
+                probe.check_launches(f"phase 12 (a) {name}", lambda phase1: 3 if phase1 else 2)
+                check([r["phase1"] for r in probe.rows] == [True, False],
+                      f"phase 12 (a) {name}: phases {[r['phase1'] for r in probe.rows]}")
+                runs[name] = dict(rows=probe.rows, student={
+                    k: v.detach().float().clone() for k, v in state.student.state_dict().items()})
+                del state
+            finally:
+                if name == "nccl1":
+                    dist.shutdown()
+                    for k in (*env, "MASTER_PORT"):
+                        os.environ.pop(k, None)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    one, again, w = runs["one"], runs["one_again"], runs["nccl1"]
+    for i in range(2):
+        for k, want in one["rows"][i]["metrics"].items():
+            spread = abs(again["rows"][i]["metrics"][k] - want)
+            got = w["rows"][i]["metrics"][k]
+            check(np.isfinite(got) and abs(got - want) <= 2 * spread,
+                  f"phase 12 (a) step {i + 1} {k}: NCCL world of 1 {got} vs one process {want}, "
+                  f"spread of two one-process runs {spread}")
+
+    def apart(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+    spread, got = apart(one["student"], again["student"]), apart(w["student"], one["student"])
+    check(got <= 2 * spread, f"phase 12 (a): student {got} from one process, spread {spread}")
+    print(f"phase 12 (a) NCCL world of 1, HBB {IMG} px B={B} bf16 through cli.train: metrics "
+          f"and student within twice the spread of two one-process runs (student max |diff| "
+          f"{got:.3e}, spread {spread:.3e}); step ms phase 1 / 2: NCCL "
+          f"{w['rows'][0]['step_ms']:.1f} / {w['rows'][1]['step_ms']:.1f}, one process "
+          f"{one['rows'][0]['step_ms']:.1f} / {one['rows'][1]['step_ms']:.1f}, "
+          f"{again['rows'][0]['step_ms']:.1f} / {again['rows'][1]['step_ms']:.1f}; K1 / K2 "
+          f"launches {[r['launches'] for r in w['rows']]}", flush=True)
+
+
+def phase_two_ranks(dev) -> None:
+    """Phase 12 (b) and (c): a world of two ranks on the one card over gloo
+    with CUDA tensors (dp_rank), against this process on the global batch."""
+    out_dir = os.path.join(ROOT, "build", "smoke_dp2")
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        launch.spawn(dp_rank, 2, out_dir, backend="gloo", timeout=300)
+        world_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        refs, again = {}, {}
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for name, config in (("hbb", HBB_CONFIG), ("sodaa", SODAA_CONFIG)):
+                # twice: the spread of one process (K2 and K4 sum in varying order)
+                for runs in (refs, again):
+                    runs[name], state = dp_chain(config, dev)
+                    del state
+                    torch.cuda.empty_cache()
+            _, one_out = run_cli(test_cli.main, [os.path.join(ROOT, HBB_CONFIG),
+                                                 os.path.join(out_dir, "hbb.pth"), "--out",
+                                                 os.path.join(out_dir, "one.npz"), *DP_EVAL])
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        dets = [dict(np.load(os.path.join(out_dir, f"{n}.npz"))) for n in ("world", "one")]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    kernel_names = {"hbb": "K1 / K2", "sodaa": "K3 / K4"}
+    for name, ref in refs.items():
+        check(ranks[0][name]["digests"] == ranks[1][name]["digests"],
+              f"phase 12 (b) {name}: the ranks' states differ {ranks[0][name]['digests']} "
+              f"{ranks[1][name]['digests']}")
+        worst, worst_key = 0.0, None
+        for i, want in enumerate(ref):
+            check(ranks[0][name]["steps"][i]["metrics"] == ranks[1][name]["steps"][i]["metrics"],
+                  f"phase 12 (b) {name} step {i + 1}: the ranks' metrics differ")
+            n = 3 if want["phase1"] else 2
+            for r, rank in enumerate(ranks):
+                got = rank[name]["steps"][i]
+                check(got["phase1"] == want["phase1"] and all(
+                    got["launches"][k] == (n if k in ("fwd", "bwd") else 0)
+                    for k in got["launches"]),
+                      f"phase 12 (b) {name} step {i + 1} rank {r}: launches {got['launches']}")
+            for k, v in want["metrics"].items():
+                got = ranks[0][name]["steps"][i]["metrics"][k]
+                rel = abs(got - v) / max(abs(v), 1e-6)
+                if rel >= worst:
+                    worst, worst_key = rel, f"step {i + 1} {k}"
+                check(np.isfinite(got) and rel <= 1e-3,
+                      f"phase 12 (b) {name} step {i + 1} {k}: world of 2 {got} vs one process {v}")
+        spread = max(abs(again[name][i]["metrics"][k] - v) / max(abs(v), 1e-6)
+                     for i, want in enumerate(ref) for k, v in want["metrics"].items())
+        print(f"phase 12 (b) two ranks on one card (gloo, CUDA tensors), {name} (f32, TF32 "
+              f"off): {len(ref[0]['metrics'])} metrics of each step within rel {worst:.2e} "
+              f"({worst_key}) of one process on the global batch (two one-process runs: "
+              f"{spread:.2e}); student, teacher, optimizer and caches bit-equal "
+              f"across the ranks; step ms phase 1 / 2: rank 0 "
+              f"{ranks[0][name]['steps'][0]['ms']:.1f} / {ranks[0][name]['steps'][1]['ms']:.1f}, "
+              f"rank 1 {ranks[1][name]['steps'][0]['ms']:.1f} / "
+              f"{ranks[1][name]['steps'][1]['ms']:.1f}, one process {ref[0]['ms']:.1f} / "
+              f"{ref[1]['ms']:.1f}; {kernel_names[name]} launches a step on each rank "
+              f"{[s['launches'] for s in ranks[0][name]['steps']]}", flush=True)
+    world_out = ranks[0]["eval"]["out"]
+    check(world_out.count("eval sharded over 2 devices") == 1, "phase 12 (c): no sharded eval")
+    got, want = eval_table(world_out), eval_table(one_out)
+    check(got == want, f"phase 12 (c): the sharded eval's table {got} != one process's {want}")
+    # a rank's forward runs at batch 1, one process's at 2: the convolutions
+    # may round otherwise, so the detections are held as sets of scores
+    check(dets[0].keys() == dets[1].keys()
+          and all(len(dets[0][k]) == len(dets[1][k]) for k in dets[1]),
+          "phase 12 (c): the sharded eval kept other detection counts than one process")
+    score_diff = max(float(np.abs(np.sort(dets[0][k][:, 4]) - np.sort(dets[1][k][:, 4])).max(
+        initial=0.0)) for k in dets[1])
+    # an image's detections in another image's place would part by far more
+    check(score_diff <= 1e-3, f"phase 12 (c): an image's sorted scores part by {score_diff} "
+                              f"from one process's")
+    print(f"phase 12 (c) tools.test sharded over the two ranks, 8 fabricated {IMG} px images, "
+          f"every candidate kept ({sum(len(v) for v in dets[1].values())} detections, as one "
+          f"process, the sorted scores within {score_diff:.2e}): the AP@0.25 table equals one "
+          f"process's ({want[-1]}); {ranks[0]['eval']['s']:.2f} s in the world; the world "
+          f"{world_s:.1f} s", flush=True)
+
+
+def phase_data_parallel(dev) -> None:
+    """Phase 12 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    mode = compute_mode()
+    print(f"phase 12: compute mode {mode}; {card_line()}", flush=True)
+    phase_nccl_world1(dev)
+    torch.cuda.empty_cache()
+    if mode != "Default":
+        print(f"phase 12 (b), (c): NOT RUN: compute mode {mode} lets one process a card "
+              f"only", flush=True)
+    else:
+        phase_two_ranks(dev)
+    print(f"phase 12 total: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def build_all() -> None:
     """nvcc for both sources at once (one process each), with -Xptxas -v."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         logs = list(pool.map(lambda mod: mod.build(ptxas_verbose=True), (ra, rr)))
-    print(f"[2/11] build: {time.perf_counter() - t0:.1f} s -> {ra.LIBRARY}, {rr.LIBRARY} "
+    print(f"[2/12] build: {time.perf_counter() - t0:.1f} s -> {ra.LIBRARY}, {rr.LIBRARY} "
           f"(sm_90a)", flush=True)
     for mod, log in zip((ra, rr), logs):
         for line in log.splitlines():
@@ -1642,7 +1933,12 @@ def kernel_rows(launches, errs, rows, src, names):
     } for kname, key, idx, replaces in names]
 
 
-def main():
+def main(argv=None):
+    """Every phase; `--only 12` runs phases 1, 2 and 12 and prints no
+    result line."""
+    argv = sys.argv[1:] if argv is None else argv
+    only = ({int(x) for x in argv[argv.index("--only") + 1].split(",")} if "--only" in argv
+            else None)
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this smoke needs a CUDA card",
               flush=True)
@@ -1651,14 +1947,24 @@ def main():
     dev = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    print(f"[1/11] device: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
+    print(f"[1/12] device: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_all()
 
     def stage(k: int, text: str) -> None:
-        print(f"[{k}/11] {text} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
+        print(f"[{k}/12] {text} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    if only:
+        # a partial run (phases 1, 2 and the named ones), for work on one phase
+        torch.backends.cudnn.allow_tf32 = True
+        if 12 in only:
+            stage(12, "data parallel")
+            phase_data_parallel(dev)
+        print(f"partial smoke (phases 1, 2, {sorted(only)}): "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
 
     stage(3, "K1 / K2 checks against the plain version (AI-TOD shapes)")
     cases = hbb_cases(dev)
@@ -1725,6 +2031,9 @@ def main():
     stage(11, "the learning check (sanity_train)")
     herrs, hrerrs = phase_learning(dev)
     errs, rerrs = merge_errs(errs, herrs), merge_errs(rerrs, hrerrs)
+    torch.cuda.empty_cache()
+    stage(12, "data parallel")
+    phase_data_parallel(dev)
 
     kernels = kernel_rows(launches, errs, rows, "point_teacher_torch/csrc/roi_align.cu", (
         ("roi_align_fwd", "fwd", 0, "point_teacher_tpu/ops/roi_align_pallas.py:49"),

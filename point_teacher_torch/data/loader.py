@@ -9,6 +9,11 @@ cut into batches and the batches shuffled (mmdet's GroupSampler); the tail
 that does not fill a batch is dropped. The batches' image_ids are the
 dataset indices, which index the point caches. The batches stay numpy: the
 caller moves them to the device.
+
+In a world of ranks (parallel/dist.py) both loaders split each global
+batch: every rank draws the same order, and reads and decodes only its
+rows (dist.rank_rows) of each batch; a world that does not divide the
+batch size raises ValueError.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Iterator
 
 import numpy as np
 
+from ..parallel import dist
 from .pipeline import pad_gts, preprocess
 
 
@@ -32,6 +38,7 @@ class TrainLoader:
         self.rng = np.random.RandomState(seed)
         self.prefetch = prefetch
         self.img_norm = img_norm
+        self.rows = dist.rank_rows(batch_size)
         # GroupSampler: batches drawn within aspect groups (a no-op for the
         # square AI-TOD images and SODA-A patches, which fall in one group;
         # SODAADataset has no img_infos)
@@ -74,9 +81,10 @@ class TrainLoader:
     def epoch(self) -> Iterator[dict]:
         """One epoch's batches, dicts of numpy arrays (image [B, S, S, 3]
         f32, gt_boxes [B, G, 4 or 5], gt_labels [B, G] int32, gt_valid
-        [B, G] bool, image_ids [B] int32), made `prefetch` ahead by a
-        thread, in the drawn order. The order is drawn when the epoch starts."""
-        chunks = self._chunks()
+        [B, G] bool, image_ids [B] int32; in a world of N ranks this rank's
+        B / N rows of each), made `prefetch` ahead by a thread, in the drawn
+        order. The order is drawn when the epoch starts."""
+        chunks = [c[self.rows] for c in self._chunks()]
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = object()
 
@@ -102,28 +110,30 @@ class EvalLoader:
     """Yields (image indices, images [B, canvas, canvas, 3], scale_factors
     [B, 4], img_shapes [B, 2]) in dataset order; the tail batch is padded to
     B with blank images (scale 1, the canvas as shape), which the caller
-    drops by the length of the indices."""
+    drops by the length of the indices. In a world of N ranks the arrays
+    hold this rank's B / N rows of each batch, the indices the whole batch's."""
 
     def __init__(self, dataset, batch_size: int, canvas: int = 800, img_norm=None):
         self.ds = dataset
         self.batch_size = batch_size
         self.canvas = canvas
         self.img_norm = img_norm
+        self.rows = dist.rank_rows(batch_size)
 
     def __iter__(self):
         n = len(self.ds)
         for start in range(0, n, self.batch_size):
             idxs = list(range(start, min(start + self.batch_size, n)))
             imgs, scales, shapes = [], [], []
-            for i in idxs:
+            for i in idxs[self.rows]:
                 img, _, scale, shape = preprocess(
                     self.ds.image_path(i), None, self.canvas,
                     img_norm=self.img_norm, return_shape=True)
                 imgs.append(img)
                 scales.append(scale)
                 shapes.append(shape)
-            while len(imgs) < self.batch_size:
-                imgs.append(np.zeros_like(imgs[0]))
+            while len(imgs) < self.rows.stop - self.rows.start:
+                imgs.append(np.zeros((self.canvas, self.canvas, 3), np.float32))
                 scales.append(np.ones(4, np.float32))
                 shapes.append(np.asarray([self.canvas, self.canvas], np.float32))
             yield idxs, np.stack(imgs), np.stack(scales), np.stack(shapes)

@@ -13,6 +13,13 @@ scored against the original images' annotations, `dataset.ori_val_ann`)
 and a fabricated val set. With `show_dir` every evaluated image (each
 patch of the rotated patch set) is written there with its detections
 drawn by utils/visualize.py.
+
+In a world of ranks (parallel/dist.py; the counterpart of the JAX runner's
+shard_infer) each rank infers its rows of each batch (TTA: one image of
+each group of N), and the fixed-shape detections are gathered to every
+rank in the global order; each rank draws the images it inferred; rank 0
+runs the metrics and writes `out`, and every rank returns its headline and
+stats.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import dist
 from . import native
 from .cocoeval import COCOStyleEval
 
@@ -69,6 +77,22 @@ def synthetic_val_set(pt, n: int, rotated: bool, seed: int = 0):
     return batches, gt
 
 
+def _infer_rows(infer, model, imgs, *extra, local: bool = False):
+    """infer(model, imgs, *extra) over this rank's rows of a global batch
+    (`local`: the arrays hold those rows already), the detections of every
+    row gathered back in the global order, as numpy."""
+    if not local:
+        rows = dist.rank_rows(imgs.shape[0])
+        imgs, extra = imgs[rows], [e[rows] for e in extra]
+    return tuple(x.cpu().numpy() for x in dist.gather_rows(*infer(model, imgs, *extra)))
+
+
+def _mine(b: int, batch_size: int) -> bool:
+    """Whether row b of a global batch is this rank's."""
+    rows = dist.rank_rows(batch_size)
+    return rows.start <= b < rows.stop
+
+
 def _kept(d, l, v, b, width: int = 4):
     """Image b's valid detections as numpy (boxes [K, width], scores [K],
     labels [K]); width 4 (x1, y1, x2, y2) or 5 (cx, cy, w, h, a)."""
@@ -101,8 +125,9 @@ def _patch_detections(infer, model, pt, cfg: Dict, tensor, draw=None):
     """The rotated dataset branch: per-patch inference over the config's
     SODA-A patch set, each patch's detections translated into its original
     image and merged there by a per-class rotated NMS. Returns (gt of the
-    original images, detections per original image). `draw` (_drawer's)
-    draws each patch's own detections under the patch's file name."""
+    original images, detections per original image), on rank 0 only (None,
+    None elsewhere). `draw` (_drawer's) draws each patch's own detections
+    under the patch's file name."""
     from ..data import EvalLoader, SODAADataset
     from .sodaa import merge_patch_detections
 
@@ -111,13 +136,16 @@ def _patch_detections(infer, model, pt, cfg: Dict, tensor, draw=None):
                       ori_ann_folder=dcfg.get("ori_val_ann"))
     loader = EvalLoader(ds, pt.batch_size, pt.img_size, img_norm=dcfg.get("img_norm"))
     names, patch_dets = [], []
+    lo = loader.rows.start
     for idxs, imgs, scales, _shapes in loader:
-        d, l, v = (x.cpu().numpy() for x in infer(model, tensor(imgs), tensor(scales)))
+        d, l, v = _infer_rows(infer, model, tensor(imgs), tensor(scales), local=True)
         for b, i in enumerate(idxs):
             names.append(ds.infos[i]["filename"])
             patch_dets.append(_kept(d, l, v, b, 5))
-            if draw:
-                draw(imgs[b], patch_dets[-1], names[-1])
+            if draw and _mine(b, pt.batch_size):
+                draw(imgs[b - lo], patch_dets[-1], names[-1])
+    if dist.rank() != 0:
+        return None, None
     merged = merge_patch_detections(names, patch_dets, pt.num_classes)
     gt = ds.ori_gt()
     empty = (np.zeros((0, 5), np.float32), np.zeros(0), np.zeros(0))
@@ -139,8 +167,9 @@ def _tta_detections(model, pt, cfg: Dict, synthetic_n: int, tta: Dict, tensor, d
     norm = cfg.get("dataset", {}).get("img_norm")
     if synthetic_n:
         batches, gt = synthetic_val_set(pt, synthetic_n, False)
-        imgs_iter = (img[b] for img in batches for b in range(img.shape[0]))
-        names = [f"img{i}.jpg" for i in range(synthetic_n)]
+        images = [img[b] for img in batches for b in range(img.shape[0])]
+        load = images.__getitem__
+        names = [f"img{i}.jpg" for i in range(len(images))]
     else:
         from ..data import AITODDataset
         from ..data.pipeline import load_image
@@ -148,17 +177,21 @@ def _tta_detections(model, pt, cfg: Dict, synthetic_n: int, tta: Dict, tensor, d
         ds = AITODDataset(cfg["dataset"]["val_ann"], cfg["dataset"]["val_img_prefix"],
                           filter_empty=False)
         gt = ds.coco_gt()
-        imgs_iter = (load_image(ds.image_path(i)) for i in range(len(ds)))
+        load = lambda i: load_image(ds.image_path(i))  # noqa: E731
         names = [_file_name(ds, i) for i in range(len(ds))]
+    n_img, n_world = len(names), dist.world()
     dets_per_img = []
-    for n, img_np in enumerate(imgs_iter):
-        img_np = np.asarray(img_np, np.float32)
+    # a world of N takes the images N at a time, one a rank; past the last
+    # image a rank repeats its group's first, whose detections are dropped
+    for start in range(0, n_img, n_world):
+        n = start + dist.rank()
+        img_np = np.asarray(load(n if n < n_img else start), np.float32)
         views = [{k: tensor(v) for k, v in view.items()} for view in
                  make_tta_views(img_np, scales, flip, img_norm=norm)]
-        d, l, v = (x.cpu().numpy() for x in tta_fn(model, views))
-        dets_per_img.append(_kept(d, l, v, 0))
-        if draw:
-            draw(img_np, dets_per_img[-1], names[n], denorm=False)
+        d, l, v = (x.cpu().numpy() for x in dist.gather_rows(*tta_fn(model, views)))
+        dets_per_img += [_kept(d, l, v, j) for j in range(min(n_world, n_img - start))]
+        if draw and n < n_img:
+            draw(img_np, dets_per_img[n], names[n], denorm=False)
     return gt, dets_per_img, f", TTA scales={list(scales)} flip={flip}"
 
 
@@ -216,11 +249,11 @@ def evaluate_detector(
         batches, gt = synthetic_val_set(pt, synthetic_n, rotated)
         dets_per_img = []
         for img in batches:
-            d, l, v = (x.cpu().numpy() for x in
-                       infer(model, tensor(img), torch.ones((img.shape[0], 4), device=dev)))
+            d, l, v = _infer_rows(infer, model, tensor(img),
+                                  torch.ones((img.shape[0], 4), device=dev))
             for b in range(img.shape[0]):
                 dets_per_img.append(_kept(d, l, v, b, 5 if rotated else 4))
-                if draw:
+                if draw and _mine(b, img.shape[0]):
                     draw(img[b], dets_per_img[-1], f"img{len(dets_per_img) - 1}.jpg")
     elif rotated:
         gt, dets_per_img = _patch_detections(infer, model, pt, cfg, tensor, draw)
@@ -233,15 +266,24 @@ def evaluate_detector(
         loader = EvalLoader(ds, pt.batch_size, pt.img_size,
                             img_norm=cfg["dataset"].get("img_norm"))
         dets_per_img = []
+        lo = loader.rows.start
         for idxs, imgs, scales, shapes in loader:
-            d, l, v = (x.cpu().numpy() for x in
-                       infer(model, tensor(imgs), tensor(scales), tensor(shapes)))
+            d, l, v = _infer_rows(infer, model, tensor(imgs), tensor(scales), tensor(shapes),
+                                  local=True)
             for b, i in enumerate(idxs):
                 dets_per_img.append(_kept(d, l, v, b))
-                if draw:
-                    draw(imgs[b], dets_per_img[-1], _file_name(ds, i))
+                if draw and _mine(b, pt.batch_size):
+                    draw(imgs[b - lo], dets_per_img[-1], _file_name(ds, i))
         gt = ds.coco_gt()
 
+    if dist.rank() != 0:
+        return dist.broadcast_object(None)
+    return dist.broadcast_object(_metrics(gt, dets_per_img, rotated, header, out, quiet))
+
+
+def _metrics(gt, dets_per_img, rotated: bool, header: str, out: Optional[str],
+             quiet: bool) -> Tuple[float, Dict[str, float]]:
+    """evaluate_detector's end on rank 0: `out`, the metrics and their table."""
     if out:
         os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
         np.savez(out, **{

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import dist
 from .rotated import rbox_iou
 
 Tensor = torch.Tensor
@@ -93,13 +94,29 @@ def dn_diou_loss(pred: Tensor, target: Tensor, weight=None, avg_factor=None,
                  hyper: float = 0.2, eps: float = 1e-6, base_valid=None) -> Tensor:
     """Denoising DIoU: min over a 3x3 bank of corner-perturbed targets, averaged
     with the base DIoU (a scalar mean over the `base_valid` rows, the
-    reference's default-'mean' quirk — see the JAX docstring)."""
+    reference's default-'mean' quirk — see the JAX docstring).
+
+    In a world of several ranks the base is a mean over the global batch
+    and multiplies every row's weight, so each rank returns its share of
+    the global loss: its base rows' sum over the global count times the
+    global weight sum, plus its own rows' bank term, over 2 x avg_factor
+    (`weight` and `avg_factor` carry no gradient; without avg_factor, the
+    global row count)."""
     base_elem = _diou_elem(pred, target, eps)
+    if dist.world() > 1:
+        return _dn_diou_share(pred, target, base_elem, weight, avg_factor, hyper, eps,
+                              base_valid)
     if base_valid is None:
         base = base_elem.mean()
     else:
         m = base_valid.reshape(base_elem.shape).to(base_elem.dtype)
         base = (base_elem * m).sum() / m.sum().clamp(min=1.0)
+    loss = (base + _dn_bank_min(pred, target, hyper, eps)) / 2
+    return weight_reduce(loss, weight, avg_factor)
+
+
+def _dn_bank_min(pred: Tensor, target: Tensor, hyper: float, eps: float) -> Tensor:
+    """Per row, the least DIoU loss over the 3x3 bank of corner-perturbed targets."""
     a = hyper / 2
     w = target[..., 2] - target[..., 0]
     h = target[..., 3] - target[..., 1]
@@ -110,8 +127,21 @@ def dn_diou_loss(pred: Tensor, target: Tensor, weight=None, avg_factor=None,
         for i in shifts for j in shifts
     ])  # [9, ..., 4], (i, j) row-major as the JAX meshgrid(indexing="ij")
     bank_loss = _diou_elem(pred[None], bank, eps)
-    loss = (base + torch.amin(bank_loss, 0)) / 2  # amin splits tied grads as JAX does
-    return weight_reduce(loss, weight, avg_factor)
+    return torch.amin(bank_loss, 0)  # amin splits tied grads as JAX does
+
+
+def _dn_diou_share(pred, target, base_elem, weight, avg_factor, hyper, eps, base_valid):
+    """dn_diou_loss's share of this rank in a world of several ranks."""
+    m = (torch.ones_like(base_elem) if base_valid is None
+         else base_valid.reshape(base_elem.shape).to(base_elem.dtype))
+    w = torch.ones_like(base_elem) if weight is None else weight.reshape(base_elem.shape)
+    count, wsum = dist.global_sum(m.sum(), w.sum())
+    base = (base_elem * m).sum() / count.clamp(min=1.0)
+    share = (base * wsum + (_dn_bank_min(pred, target, hyper, eps) * w).sum()) / 2
+    if avg_factor is None:
+        avg_factor = dist.global_sum(torch.tensor(float(base_elem.numel()),
+                                                  device=base_elem.device))
+    return share / avg_factor
 
 
 def _rotated_iou_elem(pred5: Tensor, target5: Tensor, mode: str, eps: float) -> Tensor:

@@ -1,12 +1,20 @@
 """Training entry point of the port (counterpart of tools/train.py).
 
   python -m point_teacher_torch.tools.train <config.py> [--work-dir D]
-      [--resume-from D/epoch_1.pth] [--seed S] [--cpu] [--synthetic-data N]
-      [--max-steps K] [--ckpt-interval E] [--val-interval E]
+      [--resume-from D/epoch_1.pth] [--seed S] [--cpu] [--cpu-devices N]
+      [--synthetic-data N] [--max-steps K] [--ckpt-interval E] [--val-interval E]
       [--cfg-options pt.burn_in_step=100 model.pretrained=R50.pth ...]
+  torchrun --nproc_per_node=GPUS -m point_teacher_torch.tools.train <config.py> ...
 
 Runs on the CUDA card unless --cpu is given; asked for CUDA without a card it
-raises. The config's `trainer` picks the model and the step: `point_teacher`
+raises. Data parallel (parallel/dist.py): under torchrun each rank runs on
+cuda:LOCAL_RANK over NCCL (gloo with --cpu); --cpu-devices N spawns N CPU
+ranks over gloo. Each rank trains on its rows of every global batch of
+pt.batch_size (which the world must divide, else ValueError), the metrics,
+the gradient and the point caches are the global batch's, and rank 0
+prints, logs and writes the checkpoints.
+
+The config's `trainer` picks the model and the step: `point_teacher`
 (StudentFCOS, or StudentRotatedFCOS when the config says `rotated`; steps
 0..burn_in_step run phase 1, black-paper synthesis, later steps phase 2,
 `is_phase1`), `fcos` (the box-supervised FCOS on StudentFCOS) or
@@ -34,7 +42,7 @@ from the port's by design.
 generator) and goes on as the JAX CLI does: a fresh loader from --seed, the
 start epoch step // iters_per_epoch, the schedule read at the restored step;
 so a resumed run does not see the batches the run without the stop would
-have seen. No data parallelism.
+have seen.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from ..config_io import apply_overrides, load_config
 from ..models.detector import StudentFCOS
 from ..models.rfla_fcos_head import RFLAFCOS
 from ..models.rotated_detector import StudentRotatedFCOS
+from ..parallel import dist, launch
 from ..train.fcos_baseline import build_fcos_train_step
 from ..train.optim import lr_at
 from ..train.rfla_baseline import build_rfla_train_step
@@ -59,11 +68,22 @@ from ..train.steps import build_train_step
 
 
 def resolve_device(cpu: bool) -> torch.device:
+    """The CPU, or the card: under torchrun the rank's, cuda:LOCAL_RANK."""
     if cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: pass --cpu to run on the CPU")
-    return torch.device("cuda")
+    return dist.local_device() if dist.env_world() is not None else torch.device("cuda")
+
+
+def run_distributed(fn, args, device) -> None:
+    """fn(args, device) in the world torchrun describes, joined before and
+    left after."""
+    dist.init_from_env(device)
+    try:
+        fn(args, device)
+    finally:
+        dist.shutdown()
 
 
 def is_phase1(step: int, burn_in_step: int) -> bool:
@@ -156,7 +176,7 @@ def setup(cfg: dict, n_images: int, seed: int, device, dtype=None):
         from ..utils.torch_port import load_torch_resnet50_into
 
         load_torch_resnet50_into(model, pretrained)
-        print(f"loaded pretrained backbone from {pretrained}")
+        say(f"loaded pretrained backbone from {pretrained}")
     state = create_train_state(model, pt.optim, num_images=n_images, max_gt=pt.max_gt,
                                seed=seed)
     return pt, state, build_step(cfg, pt)
@@ -165,17 +185,20 @@ def setup(cfg: dict, n_images: int, seed: int, device, dtype=None):
 def train_data(cfg: dict, seed: int, synthetic_n: int = 0):
     """(n_images, batches(batch_size) -> an epoch's numpy batches): the
     config's train set through TrainLoader, or `synthetic_n` fabricated
-    images."""
+    images; in a world of ranks this rank's rows of each batch."""
     pt, rotated = cfg["pt"], bool(cfg.get("rotated"))
     if synthetic_n:
-        return synthetic_n, synthetic_dataset(synthetic_n, pt, seed, rotated=rotated)
+        fabricated = synthetic_dataset(synthetic_n, pt, seed, rotated=rotated)
+        rows = dist.rank_rows(pt.batch_size)
+        return synthetic_n, lambda bs: ({k: v[rows] for k, v in a.items()}
+                                        for a in fabricated(bs))
     from ..data import AITODDataset, SODAADataset, TrainLoader
 
     dcfg = cfg["dataset"]
     ds = (SODAADataset if rotated else AITODDataset)(dcfg["train_ann"], dcfg["train_img_prefix"])
     loader = TrainLoader(ds, pt.batch_size, pt.max_gt, pt.img_size, seed=seed,
                          img_norm=dcfg.get("img_norm"))
-    print(f"dataset: {len(ds)} images, {len(ds.CLASSES)} classes")
+    say(f"dataset: {len(ds)} images, {len(ds.CLASSES)} classes")
     return len(ds), lambda bs: loader.epoch()
 
 
@@ -183,7 +206,9 @@ class Validator:
     """The EvalHook counterpart: evaluate the teacher of a state as it
     stands (its modules' modes, gradients and autocast untouched), log the
     headline as val_mAP, and write best.pth when it beats the best so far
-    (which starts at -1, so the first evaluation writes it)."""
+    (which starts at -1, so the first evaluation writes it). In a world of
+    ranks every rank calls it: the eval is sharded, and every rank gets the
+    same headline."""
 
     def __init__(self, cfg: dict, pt, work_dir: str, n_images: int, synthetic_n: int, logger):
         self.cfg, self.pt, self.work_dir = cfg, pt, work_dir
@@ -204,30 +229,40 @@ class Validator:
         secs = time.perf_counter() - t0
         self.logger.val(step, epoch, {"val_mAP": ap}, lr=lr_at(self.pt.optim, step))
         best = f" (best {self.best:.4f})" if self.best >= 0 else ""
-        print(f"epoch {epoch}: val mAP = {ap:.4f}{best}; {secs:.2f} s", flush=True)
+        say(f"epoch {epoch}: val mAP = {ap:.4f}{best}; {secs:.2f} s")
         if ap > self.best:
             self.best = ap
             path = os.path.join(self.work_dir, "best.pth")
             save_checkpoint(state, path, meta=dict(epoch=epoch, step=step,
                                                    num_images=self.n_images, val_mAP=ap))
-            print(f"new best mAP {ap:.4f} -> {path}", flush=True)
+            say(f"new best mAP {ap:.4f} -> {path}")
         return ap
+
+
+def say(text: str) -> None:
+    """Print on rank 0 (every line without a world)."""
+    if dist.rank() == 0:
+        print(text, flush=True)
 
 
 def train(cfg: dict, work_dir: str, seed: int = 0, device=None, synthetic_n: int = 0,
           max_steps: int = 0, resume_from: str | None = None, ckpt_interval: int = 1,
           val_interval: int = 0):
-    """The training loop of tools/train.py on one device; returns the train
-    state."""
+    """The training loop of tools/train.py on `device`, this rank's part of
+    it in a world of ranks; returns the train state."""
     from ..utils.checkpoint import link_checkpoint, load_checkpoint, save_checkpoint
     from ..utils.logging import TrainLogger
 
     os.makedirs(work_dir, exist_ok=True)
     n_images, batches = train_data(cfg, seed, synthetic_n)
+    if dist.world() > 1:
+        say(f"data parallel over {dist.world()} devices")
     pt, state, step_fn = setup(cfg, n_images, seed, device)
     if resume_from:
         load_checkpoint(state, resume_from)
-        print(f"resumed from {resume_from} at step {state.step}", flush=True)
+        dist.broadcast_module(state.student)
+        dist.broadcast_module(state.teacher)
+        say(f"resumed from {resume_from} at step {state.step}")
     logger = TrainLogger(work_dir, interval=50)
     validate = Validator(cfg, pt, work_dir, n_images, synthetic_n, logger)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda _d=None: None)
@@ -243,7 +278,7 @@ def train(cfg: dict, work_dir: str, seed: int = 0, device=None, synthetic_n: int
                 logger.step(state.step, epoch + 1, record, lr=lr_at(pt.optim, state.step))
                 record.update(step=state.step, epoch=epoch + 1,
                               step_ms=(time.perf_counter() - t0) * 1e3)
-                print(json.dumps(record), flush=True)
+                say(json.dumps(record))
                 if max_steps and state.step >= max_steps:
                     stop = True
                     break
@@ -255,12 +290,12 @@ def train(cfg: dict, work_dir: str, seed: int = 0, device=None, synthetic_n: int
                 save_checkpoint(state, path, meta=dict(epoch=epoch + 1, step=state.step,
                                                        num_images=n_images))
                 link_checkpoint(path, os.path.join(work_dir, "latest.pth"))
-                print(f"saved checkpoint: {path}", flush=True)
+                say(f"saved checkpoint: {path}")
             if stop:
                 break
     finally:
         logger.close()
-    print(f"training done at step {state.step}", flush=True)
+    say(f"training done at step {state.step}")
     return state
 
 
@@ -273,6 +308,8 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cfg-options", nargs="*", default=None)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--cpu-devices", type=int, default=0, metavar="N",
+                    help="data parallel over N CPU processes (gloo); implies --cpu")
     ap.add_argument("--synthetic-data", type=int, default=0, metavar="N_IMAGES",
                     help="train on N fabricated images instead of the dataset")
     ap.add_argument("--max-steps", type=int, default=0,
@@ -283,13 +320,25 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
+def _run(args, device):
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
-    device = resolve_device(args.cpu)
     work_dir = args.work_dir or cfg.get("work_dir", "work_dirs/default")
     return train(cfg, work_dir, args.seed, device, args.synthetic_data, args.max_steps,
                  args.resume_from, args.ckpt_interval, args.val_interval)
+
+
+def main(argv=None):
+    """Train as the flags say; returns the train state, except with
+    --cpu-devices (the ranks hold it) and under torchrun."""
+    args = parse_args(argv)
+    if args.cpu_devices:
+        launch.spawn(_run, args.cpu_devices, args, torch.device("cpu"))
+        return None
+    device = resolve_device(args.cpu)
+    if dist.env_world() is not None:
+        run_distributed(_run, args, device)
+        return None
+    return _run(args, device)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Dense-head losses of the synthetic and the pseudo branch (counterpart of
 point_teacher_tpu/train/dense_losses.py). Denominators are taken over the
-whole batch."""
+whole batch: in a world of ranks, the global batch (parallel/dist.py)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -11,6 +11,7 @@ from ..core.targets import AssignerCfg, pseudo_targets, syn_targets
 from ..ops.boxes import distance2bbox
 from ..ops.losses import (binary_cross_entropy, centerness_target, diou_loss, dn_diou_loss,
                           focal_loss_from_labels)
+from ..parallel import dist
 
 Tensor = torch.Tensor
 
@@ -30,9 +31,9 @@ def _reg_and_centerness_loss(bbox_pred, centerness, points, labels, bbox_targets
     """Positive-sample (DN-)DIoU weighted by centerness targets + centerness BCE."""
     b, p = labels.shape
     pos = labels < num_classes
-    num_pos = pos.sum().float().clamp(min=1.0)
     ctr_targets = torch.where(pos, centerness_target(bbox_targets), 0.0)
-    denorm = ctr_targets.sum().detach().clamp(min=1e-6)
+    num_pos, denorm = dist.global_sum(pos.sum().float(), ctr_targets.sum().detach())
+    num_pos, denorm = num_pos.clamp(min=1.0), denorm.clamp(min=1e-6)
     pts = points[None].expand(b, p, 2)
     decoded_pred = distance2bbox(pts, bbox_pred)
     decoded_tgt = distance2bbox(pts, bbox_targets)
@@ -76,7 +77,7 @@ def pseudo_branch_loss(cls_logits, bbox_pred, centerness, points, gt_points, gt_
                    for i in range(cls_logits.shape[0])]
     labels, labels_reg, bbox_targets = (torch.stack(t) for t in zip(*targets))
 
-    num_pos_cls = (labels < cfg.num_classes).sum().float().clamp(min=1.0)
+    num_pos_cls = dist.global_sum((labels < cfg.num_classes).sum().float()).clamp(min=1.0)
     loss_cls = focal_loss_from_labels(
         cls_logits.reshape(-1, cfg.num_classes), labels.reshape(-1), cfg.num_classes,
         avg_factor=num_pos_cls, alpha=cfg.focal_alpha, gamma=cfg.focal_gamma)

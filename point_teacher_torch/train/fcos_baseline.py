@@ -21,6 +21,7 @@ from ..core.assigners import labels_from_assignment
 from ..core.targets import assign_points_to_gts, box_targets_for_assignment
 from ..ops.boxes import distance2bbox, grid_points, xyxy_to_cxcywh
 from ..ops.losses import binary_cross_entropy, centerness_target, diou_loss, focal_loss_from_labels
+from ..parallel import dist
 from .config import PointTeacherConfig
 from .state import Batch, TrainState, ema_update
 from .steps import _flatten_head
@@ -37,11 +38,11 @@ def dense_box_losses(cls_f: Tensor, bbox_f: Tensor, ctr_f: Tensor, points: Tenso
     over its sum, BCE centerness over the positive count. Returns
     (loss_cls, loss_bbox, loss_centerness, num_pos)."""
     pos = labels < num_classes
-    num_pos = pos.sum().float().clamp(min=1.0)
+    ctr_t = torch.where(pos, centerness_target(tgts), 0.0)
+    num_pos, denorm = dist.global_sum(pos.sum().float(), ctr_t.sum().detach())
+    num_pos, denorm = num_pos.clamp(min=1.0), denorm.clamp(min=1e-6)
     loss_cls = focal_loss_from_labels(cls_f.reshape(-1, num_classes), labels.reshape(-1),
                                       num_classes, avg_factor=num_pos)
-    ctr_t = torch.where(pos, centerness_target(tgts), 0.0)
-    denorm = ctr_t.sum().detach().clamp(min=1e-6)
     pts = points[None].expand(cls_f.shape[0], -1, -1)
     loss_bbox = box_loss(distance2bbox(pts, bbox_f).reshape(-1, 4),
                          distance2bbox(pts, tgts).reshape(-1, 4),
@@ -52,10 +53,12 @@ def dense_box_losses(cls_f: Tensor, bbox_f: Tensor, ctr_f: Tensor, points: Tenso
 
 
 def update(state: TrainState, total: Tensor) -> None:
-    """Backward of `total`, one optimizer update, the step count."""
+    """Backward of `total`, the gradients summed over the world, one
+    optimizer update, the step count."""
     state.student.zero_grad(set_to_none=True)
     with record_function("pt.backward"):
         total.backward()
+        dist.reduce_grads(state.student)
     with record_function("pt.optimizer"):
         state.optimizer.step()
     state.step += 1
@@ -91,8 +94,8 @@ def build_fcos_train_step(cfg: PointTeacherConfig):
                     cfg.num_classes, diou_loss)
                 total = loss_cls + loss_bbox + loss_ctr
             update(state, total)
-        return {k: v.detach() for k, v in dict(loss_cls=loss_cls, loss_bbox=loss_bbox,
-                                                 loss_centerness=loss_ctr,
-                                                 total_loss=total).items()}
+        return dist.sum_losses({k: v.detach() for k, v in dict(
+            loss_cls=loss_cls, loss_bbox=loss_bbox, loss_centerness=loss_ctr,
+            total_loss=total).items()})
 
     return step

@@ -4,7 +4,8 @@ mil_stage_rotated for OBB).
 
 Proposal bags -> RoIAlign -> reg tower -> DeltaXYWH decode + DN-DIoU loss ->
 RoIAlign of the refined bags (and the negatives) -> bag tower -> gfocal bag
-loss -> top-k weighted selection.
+loss -> top-k weighted selection. Every count that normalises a loss or a
+metric is summed over the world before its clamp (parallel/dist.py).
 
 Every pool goes through ops.roi_align. In the grouped mode (the reference
 default) each bag member carries the clamp bounds of its group window, so
@@ -34,6 +35,7 @@ from ..ops.roi_align import (full_map_clamp, group_window_origins, roi_align,
                              window_clamp)
 from ..ops.roi_align_rotated import roi_align_rotated, roi_window_clamp
 from ..ops.rotated import rbox_iou
+from ..parallel import dist
 
 Tensor = torch.Tensor
 
@@ -50,7 +52,7 @@ class MILStageOut(NamedTuple):
 
 
 def _masked_mean(x: Tensor, mask: Tensor) -> Tensor:
-    return torch.where(mask, x, 0.0).sum() / mask.sum().clamp(min=1)
+    return dist.global_ratio(torch.where(mask, x, 0.0).sum(), mask.sum())
 
 
 def _group_window_coverage(boxes_xyxy, valid, centers, feat_hw, window, scale=1.0 / 8):
@@ -64,7 +66,7 @@ def _group_window_coverage(boxes_xyxy, valid, centers, feat_hw, window, scale=1.
            & ((y2 + 2).clamp(max=h - 1) <= wy0[..., None] + window - 1)
            & ((x1 - 2).clamp(min=0) >= wx0[..., None])
            & ((x2 + 2).clamp(max=w - 1) <= wx0[..., None] + window - 1))
-    return (valid & fit).sum() / valid.sum().clamp(min=1)
+    return dist.global_ratio((valid & fit).sum(), valid.sum())
 
 
 def _bag_loss(cls_all, ins_all, ext_valid, labels, boxes_valid, neg_w):
@@ -89,7 +91,7 @@ def _bag_loss(cls_all, ins_all, ext_valid, labels, boxes_valid, neg_w):
     bag_score = (cls_sig * ins_norm).sum(3)                                 # [B, G, U1, C]
     onehot = one_hot(labels, c, bag_score.dtype)[:, :, None, :].expand_as(bag_score)
     bag_w = (ext_valid.sum(3) > 0) & boxes_valid[:, :, None]
-    num_sample = bag_w.sum().to(bag_score.dtype).clamp(min=1.0)
+    num_sample = dist.global_sum(bag_w.sum().to(bag_score.dtype)).clamp(min=1.0)
     loss = gfocal_loss(bag_score, onehot, bag_w[..., None].to(bag_score.dtype)).sum() / num_sample
     if neg_w is not None:
         neg_sig = torch.sigmoid(cls_all[:, n:])
@@ -161,7 +163,7 @@ def _reg_finish(prep: _BagsPrep, deltas, boxes, boxes_valid, hw, dn_hyper):
     ext_ref = boxes[:, :, None, None, :].expand_as(prep.ext)
     pred = delta_decode(prep.ext.reshape(-1, 4), deltas, hw).reshape(b, g, u1, u2, 4)
     w_valid = prep.ext_valid.to(pred.dtype)
-    avg = (boxes_valid.sum() * u1 * u2).to(pred.dtype).clamp(min=1.0)
+    avg = dist.global_sum((boxes_valid.sum() * u1 * u2).to(pred.dtype)).clamp(min=1.0)
     base_valid = boxes_valid[:, :, None, None].expand(prep.ext.shape[:-1])
     loss_mil_bbox = dn_diou_loss(pred.reshape(-1, 4), ext_ref.reshape(-1, 4),
                                  weight=w_valid.reshape(-1), avg_factor=avg, hyper=dn_hyper,
@@ -287,7 +289,7 @@ def mil_stage_rotated(model, mil_feat: Tensor, rboxes: Tensor, labels: Tensor,
     deltas = model.mil_regress(roi_feats.reshape(b * n, *roi_feats.shape[2:]), stage)
     pred_hbb = delta_decode(ext.reshape(b * n, 4), deltas, hw)
     ref_hbb = cxcywh_to_xyxy(ext_ref[..., :4]).reshape(-1, 4)
-    avg = (boxes_valid.sum() * u1 * u2).to(pred_hbb.dtype).clamp(min=1.0)
+    avg = dist.global_sum((boxes_valid.sum() * u1 * u2).to(pred_hbb.dtype)).clamp(min=1.0)
     # base_valid: only real-GT bag rows enter the DN loss's scalar-mean base
     loss_mil_bbox = dn_diou_loss(pred_hbb, ref_hbb, weight=ext_valid.reshape(-1).to(pred_hbb.dtype),
                                  avg_factor=avg, hyper=dn_hyper, base_valid=vmask4)

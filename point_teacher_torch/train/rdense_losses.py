@@ -2,7 +2,8 @@
 (counterpart of point_teacher_tpu/train/rdense_losses.py): RotatedIoULoss on
 distance-angle-decoded boxes weighted by the centerness targets, the
 centerness BCE and, on the pseudo branch, the focal cls loss. Denominators
-are taken over the whole batch."""
+are taken over the whole batch: in a world of ranks, the global batch
+(parallel/dist.py)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -14,6 +15,7 @@ from ..core.targets import AssignerCfg
 from ..ops.losses import (binary_cross_entropy, centerness_target, focal_loss_from_labels,
                           rotated_iou_loss)
 from ..ops.rotated import distance_angle_decode
+from ..parallel import dist
 
 Tensor = torch.Tensor
 
@@ -39,9 +41,9 @@ def _rotated_reg_loss(bbox_pred, angle_pred, centerness, points, labels, ltrb_t,
     ties to the lower index), and every row left out has weight 0."""
     b, p = labels.shape
     pos = labels < num_classes
-    num_pos = pos.sum().float().clamp(min=1.0)
     ctr_t = torch.where(pos, centerness_target(ltrb_t), 0.0)
-    denorm = ctr_t.sum().detach().clamp(min=1e-6)
+    num_pos, denorm = dist.global_sum(pos.sum().float(), ctr_t.sum().detach())
+    num_pos, denorm = num_pos.clamp(min=1.0), denorm.clamp(min=1e-6)
     pred5 = torch.cat([bbox_pred, angle_pred], -1)
     tgt5 = torch.cat([ltrb_t, angle_t], -1)
     if max_pos is not None and max_pos < p:
@@ -93,7 +95,7 @@ def pseudo_branch_loss_rotated(cls_logits, bbox_pred, angle_pred, centerness, po
                    for i in range(cls_logits.shape[0])]
     labels, labels_reg, ltrb_t, angle_t = (torch.stack(t) for t in zip(*targets))
 
-    num_pos_cls = (labels < cfg.num_classes).sum().float().clamp(min=1.0)
+    num_pos_cls = dist.global_sum((labels < cfg.num_classes).sum().float()).clamp(min=1.0)
     loss_cls = focal_loss_from_labels(
         cls_logits.reshape(-1, cfg.num_classes), labels.reshape(-1), cfg.num_classes,
         avg_factor=num_pos_cls, alpha=cfg.focal_alpha, gamma=cfg.focal_gamma)

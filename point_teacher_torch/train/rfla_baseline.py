@@ -18,6 +18,7 @@ from torch.autograd.profiler import record_function
 
 from ..models.rfla_fcos_head import level_points_and_rfields, rfla_targets
 from ..ops.losses import iou_loss
+from ..parallel import dist
 from .config import PointTeacherConfig
 from .fcos_baseline import dense_box_losses, update
 from .state import Batch, TrainState, ema_update
@@ -53,8 +54,8 @@ def build_rfla_train_step(cfg: PointTeacherConfig):
                     torch.stack([t[1] for t in targets]), cfg.num_classes, iou_loss)
                 total = loss_cls + loss_bbox + loss_ctr
             update(state, total)
-        return {k: v.detach() for k, v in dict(loss_cls=loss_cls, loss_bbox=loss_bbox,
-                                                 loss_centerness=loss_ctr, total_loss=total,
-                                                 num_pos=num_pos).items()}
+        return dist.sum_losses({k: v.detach() for k, v in dict(
+            loss_cls=loss_cls, loss_bbox=loss_bbox, loss_centerness=loss_ctr, total_loss=total,
+            num_pos=num_pos).items()})
 
     return step

@@ -9,7 +9,9 @@ synthetic rotated boxes themselves (not their covers), and its regression
 loss decodes through the distance-angle coder.
 
 Randomness is an input (steps.Draws, with the per-image rotation angle);
-the step's parts run inside the `pt.*` profiler ranges of the HBB step.
+the step's parts run inside the `pt.*` profiler ranges of the HBB step. In a
+world of ranks it runs as the HBB step does: its rows of the global batch
+and of the draws, every reduction global (parallel/dist.py).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from ..core.raugment import RAugBatch, random_point_in_rboxes, strong_augment_ro
 from ..core.rpseudo import generate_pseudo_rboxes
 from ..ops.boxes import grid_points
 from ..ops.rotated import rbox_iou
+from ..parallel import dist
 from .config import PointTeacherConfig
 from .mil import mil_stage_rotated
 from .rdense_losses import RDenseLossCfg, pseudo_branch_loss_rotated, syn_branch_loss_rotated
@@ -40,10 +43,10 @@ def _flatten_rhead(outs):
 
 
 def _masked_iou(rb1: Tensor, rb2: Tensor, valid: Tensor) -> Tensor:
-    """Mean aligned rotated IoU over the valid slots."""
+    """Mean aligned rotated IoU over the valid slots (of the global batch)."""
     ious = rbox_iou(rb1.reshape(-1, 5), rb2.reshape(-1, 5), aligned=True)
     v = valid.reshape(-1)
-    return torch.where(v, ious, 0.0).sum() / v.sum().clamp(min=1)
+    return dist.global_ratio(torch.where(v, ious, 0.0).sum(), v.sum())
 
 
 def _teacher_pseudo(teacher, batch: Batch, gt_points, points, cfg: PointTeacherConfig):
@@ -94,11 +97,11 @@ def _point_update(state: TrainState, batch: Batch, origin, refined_rboxes,
     `gate` (phase 1) is open; origin and cached always."""
     new_refined = (1 - cfg.lamda) * refined_rboxes[..., :2] + cfg.lamda * origin
     gt = batch.gt_boxes
-    dist = torch.sqrt((new_refined - gt[..., :2]) ** 2) / torch.sqrt(
+    distance = torch.sqrt((new_refined - gt[..., :2]) ** 2) / torch.sqrt(
         ((gt[..., 2:4] / 2) ** 2).clamp(min=1e-12))
     mask = batch.gt_valid[..., None]
-    metrics["refined_points_distance"] = (
-        torch.where(mask, dist, 0.0).sum() / (mask.sum() * 1.0).clamp(min=1.0))
+    metrics["refined_points_distance"] = dist.global_ratio(
+        torch.where(mask, distance, 0.0).sum(), mask.sum() * 1.0, least=1.0)
     write_cache(state, batch.image_ids, origin, new_refined, gate)
 
 
@@ -115,7 +118,8 @@ def build_rotated_train_step(cfg: PointTeacherConfig, rdense: Optional[RDenseLos
         dev = batch.image.device
         b = batch.image.shape[0]
         if draws is None:
-            draws = make_draws(state.generator, cfg, b, dev, phase1)
+            draws = make_draws(state.generator, cfg, b * dist.world(), dev, phase1)
+        draws = dist.take_rows(draws)
         points = grid_points(cfg.feat_size, cfg.feat_size, cfg.stride, device=dev)
         student, teacher = state.student, state.teacher
         with record_function("pt.ema"):
@@ -133,10 +137,10 @@ def build_rotated_train_step(cfg: PointTeacherConfig, rdense: Optional[RDenseLos
             vmask = batch.gt_valid[:, sl]
             metrics["coarse_bboxes_iou"] = _masked_iou(ps["pseudo_boxes"][:, sl],
                                                        batch.gt_boxes[:, sl], vmask)
-            metrics["pseudo_mean_iou"] = ps["mean_iou"].mean()
+            metrics["pseudo_mean_iou"] = dist.global_mean(ps["mean_iou"])
             pwh = torch.where(vmask[..., None], ps["pseudo_boxes"][:, sl, 2:4], 0.0)
-            metrics["pseudo_mean_wh"] = pwh.sum() / (2 * vmask.sum()).clamp(min=1)
-            metrics["pseudo_max_wh"] = pwh.max()
+            metrics["pseudo_mean_wh"] = dist.global_ratio(pwh.sum(), 2 * vmask.sum())
+            metrics["pseudo_max_wh"] = dist.global_max(pwh)
 
         def augment(refined_full, gate=None):
             # update_points runs before strong augmentation in the reference
@@ -207,10 +211,11 @@ def build_rotated_train_step(cfg: PointTeacherConfig, rdense: Optional[RDenseLos
         student.zero_grad(set_to_none=True)
         with record_function("pt.backward"):
             total.backward()
+            dist.reduce_grads(student)
         with record_function("pt.optimizer"):
             state.optimizer.step()
         _point_update(state, batch, origin, refined_full, cfg, metrics, gate)
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return dist.sum_losses({k: v.detach() for k, v in metrics.items()})
 
     return step

@@ -5,7 +5,8 @@ The teacher is a second detector holding the EMA weights; the per-image
 point caches are dense [num_images, G, 2] tensors on the device, indexed by
 an integer image id and sized by the dataset's image count (the baselines
 carry them too, unused, as the JAX state does). The step updates the
-modules, the optimizer and the caches in place.
+modules, the optimizer and the caches in place. In a world of ranks every
+rank holds the whole state (the caches of every image), the same on all.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ..parallel import dist
 from .config import OptimCfg
 from .optim import PointTeacherSGD
 
@@ -44,8 +46,10 @@ class TrainState:
 
 def create_train_state(student: nn.Module, optim_cfg: OptimCfg, num_images: int,
                        max_gt: int, seed: int = 0) -> TrainState:
-    """The teacher starts as a copy of the student; caches on the student's device."""
+    """The teacher starts as a copy of the student; caches on the student's
+    device. In a world of ranks the student comes from rank 0 first."""
     dev = next(student.parameters()).device
+    dist.broadcast_module(student)
     teacher = copy.deepcopy(student).requires_grad_(False)
     return TrainState(
         step=0,

@@ -16,7 +16,9 @@ then one optimizer update and the point-cache update (phase 1 writes the
 refined points only where the gate is open).
 
 Randomness is an input: `Draws` holds every random number a step consumes,
-and `make_draws` makes them from the state's torch.Generator.
+and `make_draws` makes them from the state's torch.Generator. In a world of
+ranks each rank draws the global batch's numbers and takes its rows, and
+every batch-wide reduction is global (parallel/dist.py).
 
 The step's parts run inside `record_function("pt.<part>")` ranges, which
 tools/profile_step.py reads to split the step's device time.
@@ -32,6 +34,7 @@ from ..core.augment import AugBatch, random_point_in_boxes, strong_augment
 from ..core.pseudo import generate_pseudo_boxes
 from ..core.synthetic import SynDraws, generate_black_paper_batch, make_syn_draws
 from ..ops.boxes import bbox_overlaps, grid_points, xyxy_to_cxcywh
+from ..parallel import dist
 from .config import PointTeacherConfig
 from .dense_losses import pseudo_branch_loss, syn_branch_loss
 from .mil import mil_stage
@@ -72,7 +75,7 @@ def synthesize(syn_draws: SynDraws, batch: Batch, cfg: PointTeacherConfig, rotat
     xyxy covers, or [B, S, 5] rotated when `rotated`, valid [B, S], gate).
     The valid boxes are compacted to the front (a stable sort), so that the
     first num_training slots hold them; the gate, a 0-d bool tensor, is open
-    when every image kept at least one."""
+    when every image of the global batch kept at least one."""
     img_syn, syn_xyxy, syn_rboxes, syn_valid = generate_black_paper_batch(
         syn_draws, batch.image, batch.gt_boxes, batch.gt_valid, cfg.syn_cfg,
         fill_value=cfg.syn_fill_value)
@@ -80,7 +83,7 @@ def synthesize(syn_draws: SynDraws, batch: Batch, cfg: PointTeacherConfig, rotat
     order = torch.argsort((~syn_valid).to(torch.uint8), dim=-1, stable=True)
     boxes = boxes.gather(1, order[..., None].expand_as(boxes))
     syn_valid = syn_valid.gather(1, order)
-    return img_syn, boxes, syn_valid, syn_valid.any(-1).all()
+    return img_syn, boxes, syn_valid, dist.global_all(syn_valid.any(-1).all())
 
 
 def _flatten_head(outs):
@@ -135,8 +138,8 @@ def _run_mil_stages(model, mil_feat, boxes, labels, valid, real_boxes,
         metrics[f"stage{stage}_loss_mil_bags"] = out.loss_mil_bags * cfg.alpha[1]
         total = total + out.loss_mil_bbox * cfg.alpha[0] + out.loss_mil_bags * cfg.alpha[1]
         ious = bbox_overlaps(out.refined_boxes, real_boxes, is_aligned=True)
-        metrics[f"stage{stage}_refine_bboxes_iou"] = (
-            torch.where(valid, ious, 0.0).sum() / valid.sum().clamp(min=1))
+        metrics[f"stage{stage}_refine_bboxes_iou"] = dist.global_ratio(
+            torch.where(valid, ious, 0.0).sum(), valid.sum())
         cur = out.refined_boxes
     return cur, total
 
@@ -150,19 +153,21 @@ def _point_update(state: TrainState, batch: Batch, origin, refined_boxes,
     pseudo_centre = xyxy_to_cxcywh(refined_boxes)[..., :2]
     new_refined = (1 - cfg.lamda) * pseudo_centre + cfg.lamda * origin
     gt_c = xyxy_to_cxcywh(batch.gt_boxes)
-    dist = torch.sqrt((new_refined - gt_c[..., :2]) ** 2) / torch.sqrt(
+    distance = torch.sqrt((new_refined - gt_c[..., :2]) ** 2) / torch.sqrt(
         ((gt_c[..., 2:4] / 2) ** 2).clamp(min=1e-12))
     mask = batch.gt_valid[..., None]
-    metrics["refined_points_distance"] = (
-        torch.where(mask, dist, 0.0).sum() / mask.sum().clamp(min=1))
+    metrics["refined_points_distance"] = dist.global_ratio(
+        torch.where(mask, distance, 0.0).sum(), mask.sum())
     write_cache(state, batch.image_ids, origin, new_refined, gate)
 
 
 def write_cache(state: TrainState, ids, origin, new_refined, gate: Optional[Tensor]) -> None:
     """The point caches of images `ids`: the refined points where `gate` is
-    open (always without one), the original points and the cached flag always."""
+    open (always without one), the original points and the cached flag always.
+    In a world of ranks every rank writes every rank's images."""
     if gate is not None:
         new_refined = torch.where(gate, new_refined, state.refined_points[ids])
+    ids, origin, new_refined = dist.gather_rows(ids, origin, new_refined)
     state.refined_points[ids] = new_refined
     state.origin_points[ids] = origin
     state.points_cached[ids] = True
@@ -170,7 +175,12 @@ def write_cache(state: TrainState, ids, origin, new_refined, gate: Optional[Tens
 
 def build_train_step(cfg: PointTeacherConfig):
     """Returns step(state, batch, phase1=False, draws=None) -> metrics, which
-    updates `state` in place (student, teacher, optimizer, point caches)."""
+    updates `state` in place (student, teacher, optimizer, point caches).
+
+    In a world of ranks (parallel/dist.py) `batch` holds this rank's rows of
+    the global batch, `draws` (drawn from the state's generator when not
+    given) the global batch's, of which the step takes its rows; the
+    metrics are those of the global batch, the same on every rank."""
     cfg = cfg.normalized()
     hw = (cfg.img_size, cfg.img_size)
 
@@ -179,7 +189,8 @@ def build_train_step(cfg: PointTeacherConfig):
         dev = batch.image.device
         b = batch.image.shape[0]
         if draws is None:
-            draws = make_draws(state.generator, cfg, b, dev, phase1)
+            draws = make_draws(state.generator, cfg, b * dist.world(), dev, phase1)
+        draws = dist.take_rows(draws)
         points = grid_points(cfg.feat_size, cfg.feat_size, cfg.stride, device=dev)
         student, teacher = state.student, state.teacher
         with record_function("pt.ema"):
@@ -194,13 +205,13 @@ def build_train_step(cfg: PointTeacherConfig):
             vmask = batch.gt_valid[:, sl]
             ious = bbox_overlaps(ps["pseudo_boxes"][:, sl], batch.gt_boxes[:, sl],
                                  is_aligned=True)
-            metrics["coarse_bboxes_iou"] = (torch.where(vmask, ious, 0.0).sum()
-                                            / vmask.sum().clamp(min=1))
-            metrics["pseudo_mean_iou"] = ps["mean_iou"].mean()
+            metrics["coarse_bboxes_iou"] = dist.global_ratio(torch.where(vmask, ious, 0.0).sum(),
+                                                             vmask.sum())
+            metrics["pseudo_mean_iou"] = dist.global_mean(ps["mean_iou"])
             pwh = ps["pseudo_boxes"][:, sl, 2:4] - ps["pseudo_boxes"][:, sl, :2]
             pwh = torch.where(vmask[..., None], pwh, 0.0)
-            metrics["pseudo_mean_wh"] = pwh.sum() / (2 * vmask.sum()).clamp(min=1)
-            metrics["pseudo_max_wh"] = pwh.max()
+            metrics["pseudo_mean_wh"] = dist.global_ratio(pwh.sum(), 2 * vmask.sum())
+            metrics["pseudo_max_wh"] = dist.global_max(pwh)
 
         def augment(refined_full, gate=None):
             # update_points runs before strong augmentation in the reference
@@ -275,10 +286,11 @@ def build_train_step(cfg: PointTeacherConfig):
         student.zero_grad(set_to_none=True)
         with record_function("pt.backward"):
             total.backward()
+            dist.reduce_grads(student)
         with record_function("pt.optimizer"):
             state.optimizer.step()
         _point_update(state, batch, origin, refined_full, cfg, metrics, gate)
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return dist.sum_losses({k: v.detach() for k, v in metrics.items()})
 
     return step

@@ -7,6 +7,10 @@ and the generator's state. Beside it, `<path>.meta.json` holds what a
 loader must know before it can build the state to load into: num_images
 (the point caches' length), and, from the training CLI, the epoch and step
 (and val_mAP for best.pth).
+
+In a world of ranks (parallel/dist.py) the state is the same on every rank:
+rank 0 writes, and every rank waits at a barrier until it has; every rank
+loads, onto its own device.
 """
 from __future__ import annotations
 
@@ -16,10 +20,17 @@ import shutil
 
 import torch
 
+from ..parallel import dist
 from ..train.state import TrainState
 
 
 def save_checkpoint(state: TrainState, path: str, meta: dict | None = None) -> None:
+    if dist.rank() == 0:
+        _save(state, path, meta)
+    dist.barrier()
+
+
+def _save(state: TrainState, path: str, meta: dict | None) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     opt = state.optimizer
     # written aside and renamed: a checkpoint that another name links to
@@ -44,7 +55,14 @@ def save_checkpoint(state: TrainState, path: str, meta: dict | None = None) -> N
 def link_checkpoint(src: str, dst: str) -> None:
     """`dst` (and its meta) become the checkpoint `src`, as a hard link where
     the file system allows it, else a copy. The old `dst` is replaced by a
-    rename, so a file that another name links to is never rewritten."""
+    rename, so a file that another name links to is never rewritten. In a
+    world of ranks rank 0 links, the others wait."""
+    if dist.rank() == 0:
+        _link(src, dst)
+    dist.barrier()
+
+
+def _link(src: str, dst: str) -> None:
     for a, b in ((src, dst), (src + ".meta.json", dst + ".meta.json")):
         if not os.path.exists(a):
             continue

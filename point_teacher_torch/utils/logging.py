@@ -6,7 +6,9 @@ and of the json log that tools/analysis_tools/analyze_logs.py reads:
 WORK_DIR/train_log.jsonl holds `mode: "train"` records, the metrics
 averaged since the last record, written every `interval` iterations and at
 each epoch's end, and `mode: "val"` records, written at once. The console
-line is `Epoch [e] Iter [i] lr: ..., time: ...s/it, <losses>`.
+line is `Epoch [e] Iter [i] lr: ..., time: ...s/it, <losses>`. In a world of
+ranks only rank 0 writes either (the metrics are the global batch's on
+every rank).
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
+
+from ..parallel import dist
 
 
 class LogBuffer:
@@ -40,7 +44,8 @@ class TrainLogger:
         self.buffer = LogBuffer()
         self.interval = interval
         self.jsonl = None
-        if work_dir:
+        self.enabled = dist.rank() == 0
+        if work_dir and self.enabled:
             os.makedirs(work_dir, exist_ok=True)
             self.jsonl = open(os.path.join(work_dir, "train_log.jsonl"), "a")
         self._t0 = time.time()
@@ -53,7 +58,8 @@ class TrainLogger:
     def emit(self, step: int, epoch: int, lr: float = 0.0):
         """Write the averaged buffer now (the epoch's end); nothing when no
         metric came since the last write."""
-        if not self.buffer._counts:
+        if not self.buffer._counts or not self.enabled:
+            self.buffer.clear()
             return
         avg = self.buffer.averages()
         dt = time.time() - self._t0

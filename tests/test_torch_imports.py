@@ -44,6 +44,6 @@ def test_scan_sees_the_package():
     "ops/tiny_metrics", "core/rfla", "models/rfla_fcos_head", "tools/train",
     "core/hungarian", "utils/visualize", "demo/image_demo", "demo/huge_image_demo",
     "tools/img_split", "tools/analysis_tools/get_flops", "tools/analysis_tools/benchmark",
-    "tools/sanity_train"])
+    "tools/sanity_train", "parallel/__init__", "parallel/dist", "parallel/launch"])
 def test_scan_covers_the_eval_modules(module):
     assert f"point_teacher_torch/{module}.py" in FILES
