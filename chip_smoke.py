@@ -4,8 +4,9 @@
 
 Phases:
 1. device: the card's name and power limit; TF32 off for the checks;
-2. build: nvcc builds the horizontal and the rotated RoIAlign kernels from
-   point_teacher_torch/csrc/, both sources at once, with -Xptxas -v;
+2. build: nvcc builds the horizontal and the rotated RoIAlign kernels and
+   the NMS fixpoint kernel from point_teacher_torch/csrc/, all three
+   sources at once, with -Xptxas -v;
 3. K1 / K2 check: the horizontal forward kernel against the plain PyTorch
    version at the AI-TOD MIL shapes (group windows, the whole map, edge
    rois, a run of 64 coincident bags, far longer than the rois a block of
@@ -48,7 +49,8 @@ Phases:
    forward and 3 backward launches each: the synthetic reg bags, the real
    reg bags, the real cls + negative pool), then 3 phase-2 steps (2 and 2);
    each path must launch its windowed backward (K2, K4) and never the
-   atomic one;
+   atomic one, and the NMS fixpoint kernel once a phase-1 step (the
+   synthesis's rotated NMS) and never in phase 2;
 8. inference and eval, with the launch counts set to 0 just before and
    read just after (inference pools nothing: no RoIAlign kernel may
    launch): the HBB teacher that phase 7 trained, at full width (800 px,
@@ -74,7 +76,7 @@ Phases:
    kept boxes of each class overlapping by IoU <= 0.1 (+ 1e-3, recomputed
    on the card without the class offset), two runs bit-identical; the
    forward timed (CUDA events, median of 10), decode + NMS and the whole
-   inference (median of 3: ~4.8 s a run) and the peak memory; decode + NMS
+   inference (one run each: ~4.8 s a run) and the peak memory; decode + NMS
    on the card against the CPU from the same head outputs with nms_pre cut
    (one-shot: 1,800 candidates an image, where any class score passes
    score_thr; dense also chunked: 2,160 in two chunks behind a full buffer
@@ -122,8 +124,9 @@ Phases:
    by mil_rois / rotated_mil_rois, on a 16 x 16 map (128 px: the HBB group
    window of 24 cells is the whole map) and a 32 x 32 map (256 px, where
    the runs train); then sanity_train's run, in this
-   process, for the fcos trainer (800 steps at 256 px), the point_teacher
-   trainer and the rotated trainer (256 px, burn-in half the steps), all
+   process, for the fcos trainer (600 steps at 256 px), the point_teacher
+   trainer (300 steps) and the rotated trainer (350 steps; both at 256 px,
+   burn-in half the steps), all
    from scratch (--frozen-stages 0), f32, each with the launch counts set
    to 0 just before and read just after: each must exit 0 (LEARNING: OK,
    the student's AP@0.25 up by more than 0.02); fcos launches no RoIAlign
@@ -152,12 +155,47 @@ Phases:
    process's and the phase's own time. With a compute mode other than
    Default, (b) and (c) cannot run and say so.
 
-`--only 12` runs phases 1, 2 and 12 and prints no result line (for work on
-that phase). Any failure ends the run with a nonzero exit. The last line
+13. steps per dispatch (train/superstep.py): the NMS fixpoint kernel
+   (csrc/nms_fixpoint.cu) against its plain version, keep masks equal, at
+   the synthesis's shape of the main path, on a suppression chain deeper
+   than the rounds and on random boxes, timed beside the plain version and
+   its bound; then for HBB (800 px) and SODA-A (1200 px), B=2, bf16, the
+   config as trained: 4 phase-1 then 4 phase-2 steps from one seeded state
+   through the trainer's scan, one dispatch a phase (a CUDA graph of the
+   step: the first step eager, then the capture, then replays, under
+   torch.cuda.set_sync_debug_mode("error") save the capture's own sync),
+   each step's starting state, batch, draws and learning rates recorded;
+   then each of those steps again eagerly, twice, from its recorded state
+   with its inputs (the first time timed and under the sync check, the
+   second time of a phase-2 step under the profiler: the host calls): every
+   step's metrics (step_spreads) and its student, teacher, momentum and
+   point caches after it within twice the spread of the two eager steps
+   (at least 2% of the step's move for the student, teacher and momentum),
+   the learning rates each replay copied in equal to the eager step's;
+   held step by step because a chain of steps turns the atomics' rounding
+   into metrics apart by up to 21 whatever ran; the kernels' launch
+   counters, which count at the warm-up step and the capture and not at
+   the replays (2 x 3 / 3 a phase-1 dispatch, 2 x 2 / 2 a phase-2 one);
+   the phase-2 wall ms a step (median of 4) eager and replayed, the host
+   calls that put work on the card a dispatch of 4, the device busy ms and
+   idle share, with the card's name and power limit. Then tools.train main for fcos and
+   rfla_fcos, 4 steps on fabricated batches, --steps-per-dispatch 3 (its
+   scans under the sync check) against 1 (twice): every step's metrics
+   within twice the spread of the two runs at 1. The spread of a metric is
+   its difference between the two runs, or, where larger, its value times
+   the step's largest relative difference (step_spreads: two runs that sum
+   with atomics can agree on one metric by chance). Last, (d): the HBB
+   config through the CLI's train function at --steps-per-dispatch 2 in a
+   world of one rank over NCCL (the graph holds its all-reduces) against
+   one process, every metric within 1e-3.
+
+`--only 12` (or 13, or 12,13) runs phases 1, 2 and the named ones and
+prints no result line (for work on those phases). Any failure ends the run with a nonzero exit. The last line
 is the JSON contract line; the line before it is the card's name and power
-limit, and the line before that the kernels JSON line (K1-K4; `max_abs_err`
-is the largest of the f32 checks', phases 3 / 4 and 11), after the run's
-total seconds.
+limit, and the line before that the kernels JSON line (K1-K4, then the
+NMS fixpoint kernel; `max_abs_err` is the largest of the f32 checks',
+phases 3 / 4 and 11, and for the fixpoint the keep flags that differ),
+after the run's total seconds.
 """
 from __future__ import annotations
 
@@ -202,6 +240,8 @@ from point_teacher_torch.tools import train as cli
 from point_teacher_torch.tools.profile_step import make_dense
 from point_teacher_torch.train.rsteps import _flatten_rhead
 from point_teacher_torch.train.steps import _flatten_head, make_draws
+from point_teacher_torch.train.superstep import StepGraph, _map
+from point_teacher_torch.utils.device import to_device
 from point_teacher_torch.utils.checkpoint import save_checkpoint
 
 IMG, FEAT, CH, B, G, NEG = 800, 100, 256, 2, 100, 200
@@ -288,6 +328,24 @@ def edge_rois(dev):
                       [0, 0, 799, 799], [-200, -100, 1000, 900], [10, 5, 700, 40]],
                      dtype=torch.float32, device=dev)
     return e[None].expand(B, -1, 4).contiguous()
+
+
+def timed_on(fn, make, reps: int = 20, warmup: int = 3) -> float:
+    """Median ms of fn(*make()) over `reps` runs, each timed with CUDA
+    events around fn alone (its inputs made before)."""
+    for _ in range(warmup):
+        fn(*make())
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        args = make()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(*args)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 def timed(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -787,6 +845,7 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     others.reset_launch_counts()
+    nms_ops.reset_launch_counts()
     step_ms, peaks = {1: [], 2: []}, {}
     for i, a in enumerate(arrays):
         batch = cli.to_batch(a, dev)
@@ -800,6 +859,7 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
             peaks[1] = torch.cuda.max_memory_allocated()
             torch.cuda.reset_peak_memory_stats()
         counts0 = kernels.launch_counts()
+        fix0 = nms_ops.launch_counts()["fixpoint"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = step_fn(state, batch, phase1=phase1)
@@ -810,6 +870,11 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
         check(not bad, f"{config} step {i + 1}: non-finite metrics {bad}")
         got = {k: v - counts0[k] for k, v in kernels.launch_counts().items()}
         check(got == want, f"{config} step {i + 1} (phase {phase}): launches {got} != {want}")
+        # the synthesis's rotated NMS finishes its fixpoint on the card: one
+        # launch a phase-1 step
+        fix = nms_ops.launch_counts()["fixpoint"] - fix0
+        check(fix == int(phase1), f"{config} step {i + 1} (phase {phase}): {fix} fixpoint "
+                                  f"launches, want {int(phase1)}")
         check(bool(state.points_cached[batch.image_ids].all()),
               f"{config} step {i + 1}: point caches not set")
         print(f"{config} step {i + 1} (phase {phase}): {step_ms[phase][-1]:.1f} ms "
@@ -819,7 +884,7 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
     peaks[2] = torch.cuda.max_memory_allocated()
     check(len(step_ms[1]) == 3 and len(step_ms[2]) == 3, f"{config}: phase switch {step_ms}")
     counts = kernels.launch_counts()
-    launches = (counts["fwd"], counts["bwd"])
+    launches = (counts["fwd"], counts["bwd"], nms_ops.launch_counts()["fixpoint"])
     check(not any(others.launch_counts().values()),
           f"{config}: launched the other module's kernels {others.launch_counts()}")
     moved = {k: float((named[k].detach() - before[k]).abs().max()) for k in watch}
@@ -834,7 +899,7 @@ def phase_main_path(dev, config: str, kernels, others, frozen, unchanged, traina
         print(f"main path {config}: phase-{phase} step ms (steps 2, 3 of the phase) = "
               f"{steady[0]:.1f}, {steady[1]:.1f}; imgs/s = {B * 1e3 / np.mean(steady):.3f}; "
               f"peak memory {peaks[phase] / 2**30:.2f} GiB", flush=True)
-    print(f"main path {config}: launches {counts}; frozen unchanged "
+    print(f"main path {config}: launches {counts}, NMS fixpoint {launches[2]}; frozen unchanged "
           f"{len(frozen + unchanged)}, trainable moved {len(trainable)}", flush=True)
     return launches, state, {phase: float(np.mean(step_ms[phase][1:])) for phase in (1, 2)}
 
@@ -1126,10 +1191,10 @@ def phase_rotated_inference(dev, state) -> None:
         n_valid = first[2].sum(-1).tolist()
         with torch.no_grad():
             fwd_ms = timed(lambda: model(images), reps=10)
-        # decode + NMS ran twice above, and the forward's warm-up: no more; a
-        # median of 3 (each run ~4.8 s)
-        nms_ms = timed(lambda: decode(heads, points, ones), reps=3, warmup=0)
-        infer_ms = timed(lambda: infer(model, images, ones), reps=3, warmup=0)
+        # decode + NMS ran twice above, and the forward's warm-up: no more;
+        # one run each (each ~4.8 s)
+        nms_ms = timed(lambda: decode(heads, points, ones), reps=1, warmup=0)
+        infer_ms = timed(lambda: infer(model, images, ones), reps=1, warmup=0)
         peak = torch.cuda.max_memory_allocated()
         print(f"rotated inference {case}: {above} of {B * RFEAT * RFEAT * pt.num_classes} class "
               f"scores above score_thr; {m} class-expanded candidates an image in {chunks} "
@@ -1564,9 +1629,9 @@ def _phase_cli(dev, root: str, fab) -> None:
 # (trainer, flags): sanity_train runs from scratch, as many steps as the
 # smoke's time allows (PERF.md section 6 says which counts and why)
 LEARNING_RUNS = (
-    ("fcos", ["--steps", "800", "--img", "256"]),
-    ("point_teacher", ["--steps", "400", "--img", "256", "--burn-in-frac", "0.5"]),
-    ("rotated", ["--steps", "400", "--img", "256", "--burn-in-frac", "0.5"]),
+    ("fcos", ["--steps", "600", "--img", "256"]),
+    ("point_teacher", ["--steps", "300", "--img", "256", "--burn-in-frac", "0.5"]),
+    ("rotated", ["--steps", "350", "--img", "256", "--burn-in-frac", "0.5"]),
 )
 
 
@@ -1904,14 +1969,518 @@ def phase_data_parallel(dev) -> None:
     print(f"phase 12 total: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# --------------------------------------------------------------------------
+# steps per dispatch: the step as a CUDA graph (phase 13)
+# --------------------------------------------------------------------------
+
+K13 = 4                      # steps a dispatch, each phase
+HOST_CALLS = ("LaunchKernel", "GraphLaunch", "MemcpyAsync", "MemsetAsync")
+
+
+def host_calls(fn):
+    """fn() under the profiler (CUDA activity): (its result, the host calls
+    that put work on the card, by kind, and the device busy ms, the union
+    of the kernels' and copies' intervals)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from point_teacher_torch.tools.profile_step import _busy_us
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    calls = dict.fromkeys(HOST_CALLS, 0)
+    device = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device.append((e.time_range.start, e.time_range.end))
+            continue
+        for kind in HOST_CALLS:
+            if kind in e.name:
+                calls[kind] += 1
+    return out, calls, _busy_us(device) / 1e3
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """torch.cuda.set_sync_debug_mode("error") inside: any host sync raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def state_refs(state) -> dict:
+    """The tensors of a train state that a step reads or moves, by name
+    (the modules' parameters and buffers, the momentum, the point caches):
+    the state's own tensors, not copies."""
+    out = {f"student.{k}": v for k, v in state.student.state_dict().items()}
+    out.update({f"teacher.{k}": v for k, v in state.teacher.state_dict().items()})
+    out.update({f"momentum.{g}.{i}": t for g in ("base", "bias")
+                for i, t in enumerate(state.optimizer.trace[g])})
+    out.update(origin=state.origin_points, refined=state.refined_points,
+               cached=state.points_cached)
+    return out
+
+
+def snapshot(state) -> dict:
+    return {k: v.detach().clone() for k, v in state_refs(state).items()}
+
+
+@torch.no_grad()
+def load_state(state, snap: dict, step: int, count: int) -> None:
+    """`snap` (a snapshot) and the host counters into `state`, in place."""
+    for k, v in state_refs(state).items():
+        v.copy_(snap[k])
+    state.step, state.optimizer.count = step, count
+
+
+STATE_PARTS = ("student", "teacher", "momentum", "origin", "refined", "cached")
+
+
+def part_apart(a: dict, b: dict) -> dict:
+    """The largest |a - b| of each part of two states (state_refs names)."""
+    tops = {p: [] for p in STATE_PARTS}
+    for k, v in a.items():
+        if v.numel():
+            tops[k.split(".")[0]].append((v.float() - b[k].float()).abs().max())
+    return {p: float(torch.stack(t).max()) if t else 0.0 for p, t in tops.items()}
+
+
+@contextlib.contextmanager
+def recorded_steps(log: list):
+    """Inside, each step of a StepGraph (its eager warm-up step and each
+    replay) appends to `log`, before it runs: a snapshot of the state, the
+    host counters, the batch, the host draws and the negated learning rates
+    the replay copies in (None for the warm-up step, which sets its own)."""
+    warm_up, replay = StepGraph.warm_up, StepGraph.replay
+
+    def record(g, batch, draws, neg_lr=None):
+        log.append(dict(pre=snapshot(g.state), step=g.state.step,
+                        count=g.state.optimizer.count, batch=batch, draws=draws,
+                        neg_lr=None if neg_lr is None else neg_lr.clone()))
+
+    def rec_warm_up(g, batch, draws):
+        record(g, batch, draws)
+        return warm_up(g, batch, draws)
+
+    def rec_replay(g, batch, draws, neg_lr, out_row):
+        record(g, batch, draws, neg_lr)
+        return replay(g, batch, draws, neg_lr, out_row)
+
+    StepGraph.warm_up, StepGraph.replay = rec_warm_up, rec_replay
+    try:
+        yield log
+    finally:
+        StepGraph.warm_up, StepGraph.replay = warm_up, replay
+
+
+def graph_chain(config: str, dev) -> dict:
+    """Phase 13 (a) / (b) of one fork: K13 phase-1 then K13 phase-2 steps at
+    full width (bf16, the config as trained, the CLI's setup from seed 0,
+    burn_in_step K13 - 1) through the trainer's scan, one dispatch a phase
+    (the first step eager, then the capture, then replays; under
+    no_host_sync save the capture's own sync), each step's state, counters,
+    batch, draws and learning rates recorded as it starts (recorded_steps).
+    Then each step of the two dispatches again, eagerly, from that same
+    state with the same inputs, twice, on two other states of the same
+    setup (each step under no_host_sync and timed; the second time of a
+    phase-2 step under the profiler): the graph's metrics of the step and
+    its state after the step within twice the spread of the two eager steps
+    (step_spreads for the metrics; for the student, the teacher and the
+    momentum at least 2% of the step's largest move). Held step by step and
+    not as two chains: the atomics of K2 / K4 make two runs of a chain part
+    by rounding, and the chain's discrete choices (pseudo boxes, the top-k
+    of the proposals) turn that into metrics that differ by up to 21 from
+    step 5 on (SODA-A, two eager chains against the graph's), whatever
+    code ran. Then two more dispatches of the graph: the replays timed one
+    by one, and under the profiler. Returns what check_graph_chain prints."""
+    # the warmup ends after 2 steps: the learning rate a replay copies in
+    # changes inside each phase's dispatch
+    cfg = apply_overrides(load_config(os.path.join(ROOT, config)),
+                          [f"pt.burn_in_step={K13 - 1}", "pt.optim.warmup_iters=2"])
+    rotated = bool(cfg.get("rotated"))
+    kernels, others = (rr, ra) if rotated else (ra, rr)
+    n_images = 2 * K13 * B
+    pt, state, _ = cli.setup(cfg, n_images, 0, dev)
+    twins = [cli.setup(cfg, n_images, 0, dev)[1] for _ in range(2)]
+    step_fn = cli.build_step(cfg, pt)
+    scan = cli.build_step(cfg, pt, scan=True)
+    arrays = list(cli.synthetic_dataset(n_images, pt, 0, rotated=rotated)(B))
+    groups = {True: arrays[:K13], False: arrays[K13:]}
+    run = dict(ms={}, calls={}, busy={}, launches={}, first_s=0.0, worst=0.0,
+               apart={p: (0.0, 0.0) for p in STATE_PARTS})
+    counters = lambda: (kernels.launch_counts(), nms_ops.launch_counts(),  # noqa: E731
+                        sum(others.launch_counts().values()))
+    for phase1 in (True, False):
+        check(cli.is_phase1(state.step, pt.burn_in_step) == phase1,
+              f"phase 13 {config}: step {state.step} is not phase {2 - phase1}")
+        batches = [cli.to_batch(a, dev) for a in groups[phase1]]
+        for mod in (kernels, others, nms_ops):
+            mod.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_steps([]) as log, no_host_sync():
+            ms = scan(state, batches, phase1=phase1)
+        torch.cuda.synchronize()
+        run["first_s"] += time.perf_counter() - t0
+        run["launches"][phase1, "graph"] = counters()
+        check(all(v.shape == (K13,) for v in ms.values()),
+              f"phase 13 {config}: the scan's metrics are not [{K13}]")
+        check(len(log) == K13 and log[0]["neg_lr"] is None
+              and all(r["neg_lr"] is not None for r in log[1:]),
+              f"phase 13 {config}: {len(log)} steps recorded, want a warm-up step and "
+              f"{K13 - 1} replays")
+        table = torch.stack(list(ms.values()), 1).cpu().tolist()
+        graph_metrics = [dict(zip(ms, row)) for row in table]
+        posts = [r["pre"] for r in log[1:]] + [snapshot(state)]
+        for mod in (kernels, others, nms_ops):
+            mod.reset_launch_counts()
+        walls, calls, busy = [], dict.fromkeys(HOST_CALLS, 0), 0.0
+        for i, rec in enumerate(log):
+            first = K13 * (not phase1)
+            check(rec["step"] == first + i and rec["count"] == first + i,
+                  f"phase 13 {config}: replay {i + 1} of phase {2 - phase1} starts at step "
+                  f"{rec['step']}, update {rec['count']}")
+            eager = []
+            for j, twin in enumerate(twins):
+                load_state(twin, rec["pre"], rec["step"], rec["count"])
+                draws = _map(lambda t: to_device(t, dev), rec["draws"])
+                torch.cuda.synchronize()
+                call = lambda: step_fn(twin, rec["batch"], phase1=phase1,  # noqa: E731
+                                       draws=draws)
+                t0 = time.perf_counter()
+                if j == 0:
+                    with no_host_sync():
+                        m = call()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    if rec["neg_lr"] is not None:
+                        check(torch.equal(twin.optimizer.neg_lr.cpu(), rec["neg_lr"]),
+                              f"phase 13 {config} step {first + i + 1}: the replay's learning "
+                              f"rates {rec['neg_lr'].tolist()}, eager "
+                              f"{twin.optimizer.neg_lr.tolist()}")
+                elif phase1:
+                    m = call()
+                else:
+                    m, c, b = host_calls(call)
+                    calls = {k: calls[k] + c[k] for k in calls}
+                    busy += b
+                eager.append({k: float(v) for k, v in m.items()})
+            want, again = eager
+            got = graph_metrics[i]
+            check(set(got) == set(want), f"phase 13 {config} step {first + i + 1}: keys")
+            spreads = step_spreads(want, again)
+            for k, w in want.items():
+                check(np.isfinite(got[k]) and abs(got[k] - w) <= 2 * spreads[k],
+                      f"phase 13 {config} step {first + i + 1} {k}: graph {got[k]} vs eager "
+                      f"{w}, spread of two eager steps {spreads[k]}")
+                run["worst"] = max(run["worst"], abs(got[k] - w))
+            e1, e2 = (state_refs(t) for t in twins)
+            apart = part_apart(posts[i], e1)
+            spread = part_apart(e2, e1)
+            moved = part_apart(e1, rec["pre"])
+            for p in STATE_PARTS:
+                # a step with a stale learning rate, or left out, moves the
+                # state by far more than 2% of its move from the eager step's
+                s = max(spread[p], 1e-2 * moved[p]) if p in STATE_PARTS[:3] else spread[p]
+                check(apart[p] <= 2 * s, f"phase 13 {config} step {first + i + 1}: graph "
+                                         f"{p} {apart[p]} from eager, spread {s}")
+                run["apart"][p] = max(run["apart"][p], (apart[p], s))
+        run["launches"][phase1, "eager"] = counters()
+        run["ms"][phase1] = walls
+        if not phase1:
+            run["calls"]["eager"], run["busy"]["eager"] = calls, busy
+        del log, posts
+    # the graph's time: the phase-2 dispatch again, each replay timed on
+    # the host clock, then once more under the profiler
+    batches = [cli.to_batch(a, dev) for a in groups[False]]
+    walls = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan(state, [b], phase1=False)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    run["ms"]["graph"] = walls
+    _, run["calls"]["graph"], run["busy"]["graph"] = host_calls(
+        lambda: scan(state, batches, phase1=False))
+    del state, twins, scan, step_fn
+    torch.cuda.empty_cache()
+    return run
+
+
+SPREAD_FLOOR = 5e-4
+
+
+def step_spreads(want: dict, again: dict) -> dict:
+    """The spread of each metric of one step between two runs: its own
+    difference, or, where larger, its value times the step's relative
+    spread (the largest relative difference of any of the step's metrics)
+    or SPREAD_FLOOR. Two runs that sum with atomics (K2, K4, cuDNN's weight
+    gradients) can sum in the same order by chance, and then agree on a
+    step that a third run, summing otherwise, does not (graph replays
+    parted from two bit-equal eager runs by up to 2.9e-4 of a metric on
+    the card)."""
+    rel = max([abs(again[k] - w) / max(abs(w), 1e-6) for k, w in want.items()]
+              + [SPREAD_FLOOR])
+    return {k: max(abs(again[k] - w), rel * abs(w)) for k, w in want.items()}
+
+
+def check_graph_chain(config: str, run: dict) -> dict:
+    """The launch counts of graph_chain's run, and the printout; returns the
+    numbers for the summary."""
+    rotated = "sodaa" in config
+    for (phase1, name), (counts, fix, other) in run["launches"].items():
+        # the graph counts its warm-up step and its capture, not its
+        # replays; the eager steps are two a recorded step
+        n_steps = 2 if name == "graph" else 2 * K13
+        n = (3 if phase1 else 2) * n_steps
+        want = {k: n if k in ("fwd", "bwd") else 0 for k in counts}
+        want_fix = {"fixpoint": n_steps if phase1 else 0}
+        check(counts == want and fix == want_fix and other == 0,
+              f"phase 13 {config} {name} phase {2 - phase1}: launches {counts} fixpoint "
+              f"{fix} others {other}, want {want} {want_fix}")
+    eager_ms = float(np.median(run["ms"][False]))
+    graph_ms = float(np.median(run["ms"]["graph"]))
+    calls_e = sum(run["calls"]["eager"].values())
+    calls_g = sum(run["calls"]["graph"].values())
+    idle_e = 1 - run["busy"]["eager"] / sum(run["ms"][False])
+    idle_g = 1 - run["busy"]["graph"] / sum(run["ms"]["graph"])
+    launches = run["launches"]
+    print(f"phase 13 {config} ({RIMG if rotated else IMG} px, B={B}, bf16): {K13} phase-1 then "
+          f"{K13} phase-2 steps as graph replays, each step held against two eager steps from "
+          f"its own starting state with its inputs: every metric within twice their spread "
+          f"(largest |graph - eager| {run['worst']:.3e}); states after each step, largest "
+          + ", ".join(f"{k} {g:.3e} (spread {s:.3e})" for k, (g, s) in run["apart"].items())
+          + f"; the replays' learning rates equal the eager steps'; no host sync in any timed "
+          f"eager step, warm-up step or replay; launches counted {launches[True, 'graph'][0]} / "
+          f"{launches[False, 'graph'][0]} (warm-up step and capture) against eager "
+          f"{launches[True, 'eager'][0]} / {launches[False, 'eager'][0]} "
+          f"({2 * K13} steps)", flush=True)
+    print(f"phase 13 {config} phase-2 wall ms/step (median of {K13}): eager {eager_ms:.2f} "
+          f"(each {', '.join(f'{w:.1f}' for w in run['ms'][False])}), graph {graph_ms:.2f} "
+          f"(each {', '.join(f'{w:.1f}' for w in run['ms']['graph'])}); phase-1 eager "
+          f"{float(np.median(run['ms'][True])):.2f}; host calls a dispatch of {K13}: eager "
+          f"{calls_e} {run['calls']['eager']}, graph {calls_g} {run['calls']['graph']}; "
+          f"device busy ms a dispatch: eager {run['busy']['eager']:.2f}, graph "
+          f"{run['busy']['graph']:.2f}; idle share eager {idle_e:.3f}, graph {idle_g:.3f}; "
+          f"first dispatches (warm-up, capture, replays) {run['first_s']:.1f} s; "
+          f"{card_line()}", flush=True)
+    return dict(eager_ms=eager_ms, graph_ms=graph_ms, calls=(calls_e, calls_g))
+
+
+def baseline_cli(dev, config: str) -> None:
+    """Phase 13 (c): tools.train main for `config` with --steps-per-dispatch
+    3 against 1 (twice: the spread), 4 steps on 8 fabricated images (a
+    group of 3, then one of 1 at --max-steps); the scans run under
+    no_host_sync, save the capture."""
+    work = os.path.join(ROOT, "build", "smoke_spd")
+    orig = cli.build_step
+
+    def strict_build(cfg, pt, scan=False):
+        fn = orig(cfg, pt, scan)
+        if not scan:
+            return fn
+
+        def strict(*args, **kwargs):
+            with no_host_sync():
+                return fn(*args, **kwargs)
+        return strict
+
+    recs = {}
+    try:
+        cli.build_step = strict_build
+        for name, k in (("k1", 1), ("k1_again", 1), ("k3", 3)):
+            shutil.rmtree(work, ignore_errors=True)
+            _, out = run_cli(cli.main, [os.path.join(ROOT, config), "--synthetic-data", "8",
+                                        "--max-steps", "4", "--work-dir", work,
+                                        "--steps-per-dispatch", str(k)])
+            recs[name] = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+            torch.cuda.empty_cache()
+    finally:
+        cli.build_step = orig
+        shutil.rmtree(work, ignore_errors=True)
+    one, again, three = recs["k1"], recs["k1_again"], recs["k3"]
+    check([r["step"] for r in three] == [r["step"] for r in one] == list(range(1, 5)),
+          f"phase 13 {config}: steps {[r['step'] for r in three]}")
+    worst = 0.0
+    for i, rec in enumerate(one):
+        want = {k: v for k, v in rec.items() if k not in ("step", "epoch", "step_ms")}
+        spreads = step_spreads(want, again[i])
+        for k, w in want.items():
+            check(np.isfinite(three[i][k]) and abs(three[i][k] - w) <= 2 * spreads[k],
+                  f"phase 13 {config} step {i + 1} {k}: --steps-per-dispatch 3 {three[i][k]} vs "
+                  f"1 {w}, spread of two runs {spreads[k]}")
+            worst = max(worst, abs(three[i][k] - w))
+    print(f"phase 13 {config} through tools.train: --steps-per-dispatch 3 against 1, 4 steps: "
+          f"every metric within twice the spread of two runs at 1 (largest difference "
+          f"{worst:.3e}); step_ms at 3 (the group's wall over 3) "
+          f"{[round(r['step_ms'], 1) for r in three]}, at 1 {[round(r['step_ms'], 1) for r in one]}",
+          flush=True)
+
+
+def nccl_graph(dev) -> None:
+    """Phase 13 (d): the HBB config through the CLI's train function at
+    --steps-per-dispatch 2, 3 phase-2 steps (a group of 2, captured with its
+    NCCL all-reduces, then one plain step), in this process and in a world
+    of one rank over NCCL: every metric within 1e-3 of the one-process
+    run's (bf16, K2's atomics; SPREAD_FLOOR)."""
+    cfg = apply_overrides(load_config(os.path.join(ROOT, HBB_CONFIG)), ["pt.burn_in_step=-1"])
+    work = os.path.join(ROOT, "build", "smoke_nccl_graph")
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1")
+    runs = {}
+    try:
+        for name in ("one", "nccl1"):
+            if name == "nccl1":
+                os.environ.update(env, MASTER_PORT=str(free_port()))
+                dist.init_from_env(cli.resolve_device(False))
+                check(dist.active() and torch.distributed.get_backend() == "nccl",
+                      "phase 13 (d): no NCCL world of one rank")
+            try:
+                torch.cuda.empty_cache()
+                _, out = run_cli(lambda argv: cli.train(cfg, work, 0, dev, 8, 3,
+                                                        steps_per_dispatch=2), [])
+                runs[name] = [json.loads(line) for line in out.splitlines()
+                              if line.startswith("{")]
+            finally:
+                if name == "nccl1":
+                    dist.shutdown()
+                    for k in (*env, "MASTER_PORT"):
+                        os.environ.pop(k, None)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    one, w = runs["one"], runs["nccl1"]
+    check([r["step"] for r in w] == [r["step"] for r in one] == [1, 2, 3],
+          f"phase 13 (d): steps {[r['step'] for r in w]}")
+    worst = 0.0
+    for i, rec in enumerate(one):
+        want = {k: v for k, v in rec.items() if k not in ("step", "epoch", "step_ms")}
+        for k, tol in step_spreads(want, want).items():
+            got = w[i][k]
+            check(np.isfinite(got) and abs(got - want[k]) <= 2 * tol,
+                  f"phase 13 (d) step {i + 1} {k}: NCCL world of 1 {got} vs one process "
+                  f"{want[k]}")
+            worst = max(worst, abs(got - want[k]) / max(abs(want[k]), 1e-6))
+    print(f"phase 13 (d) NCCL world of 1 at --steps-per-dispatch 2 (the group's graph holds "
+          f"the all-reduces), HBB {IMG} px: 3 steps within rel {worst:.2e} of one process; "
+          f"step_ms {[round(r['step_ms'], 1) for r in w]} against "
+          f"{[round(r['step_ms'], 1) for r in one]}", flush=True)
+
+
+def fixpoint_cases(dev):
+    """Conflict matrices with the fixpoint's state after its rounds, as
+    _greedy_suppress leaves them: (name, conflict, alive, keep). The main
+    path's: the phase-1 synthesis NMS at the HBB config's full width (the
+    synthesis's candidates, B=2, 2 x 100 + 10 slots, 32 rounds); then a row
+    of 200 boxes each overlapping its neighbours (greedy keeps every other
+    one: 64 rounds leave 72 alive), and 4 problems of 500 random boxes after
+    2 rounds."""
+    cases = []
+
+    def state_after(iou, scores, thr, rounds, valid=None):
+        if valid is not None:
+            scores = torch.where(valid, scores, -torch.inf)
+            iou = torch.where(valid[..., None, :] & valid[..., :, None], iou, 0.0)
+        order = torch.argsort(-scores, dim=-1, stable=True)
+        rank = torch.argsort(order, dim=-1, stable=True)
+        conflict = (rank[..., None, :] < rank[..., :, None]) & (iou > thr)
+        alive = torch.ones(iou.shape[:-1], dtype=torch.bool, device=iou.device)
+        keep = torch.zeros_like(alive)
+        for _ in range(rounds):
+            alive, keep = nms_ops._round(conflict, alive, keep)
+        return conflict.contiguous(), alive.contiguous(), keep.contiguous()
+
+    pt = load_config(HBB_CONFIG)["pt"]
+    arrays = next(cli.synthetic_dataset(2, pt, 7)(B))
+    batch = cli.to_batch(arrays, dev)
+    draws = make_syn_draws(torch.Generator().manual_seed(11), len(pt.shape_list), B, G, dev)
+    captured = []
+    real = nms_ops._greedy_suppress
+
+    def spy(iou, scores, thr, iters=32):
+        captured.append((iou, scores, thr, iters))
+        return real(iou, scores, thr, iters)
+    nms_ops._greedy_suppress = spy
+    try:
+        generate_black_paper_batch(draws, batch.image, batch.gt_boxes, batch.gt_valid,
+                                   SynCfg(pt.shape_list, pt.img_size), pt.syn_fill_value)
+    finally:
+        nms_ops._greedy_suppress = real
+    iou, scores, thr, iters = captured[0]
+    cases.append(("synthesis (main path)", *state_after(iou, scores, thr, iters)))
+    n = 200
+    x = torch.arange(n, dtype=torch.float32, device=dev) * 4.0
+    row = torch.stack([x, torch.zeros_like(x), x + 10.0, torch.full_like(x, 10.0)], -1)
+    cases.append(("chain of 200", *state_after(bbox_overlaps(row, row),
+                                               torch.linspace(1, 0.1, n, device=dev), 0.3, 64)))
+    r = np.random.RandomState(13)
+    cxy = r.uniform(0, 200, (4, 500, 2))
+    wh = r.uniform(4, 40, (4, 500, 2))
+    boxes = torch.tensor(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1), dtype=torch.float32,
+                         device=dev)
+    cases.append(("4 x 500 random", *state_after(bbox_overlaps(boxes, boxes),
+                                                 torch.rand((4, 500), device=dev), 0.3, 2)))
+    return cases
+
+
+def phase_fixpoint(dev, bw: float) -> dict:
+    """The NMS fixpoint kernel against its plain version on every case
+    (keep masks equal), its launches, and its time beside the plain
+    version's at the main path's shape; the kernels-line numbers."""
+    rows = {}
+    for name, conflict, alive, keep in fixpoint_cases(dev):
+        nms_ops.reset_launch_counts()
+        want = nms_ops.finish_fixpoint_plain(conflict, alive.clone(), keep.clone())
+        got = nms_ops.finish_fixpoint_cuda(conflict, alive.clone(), keep.clone())
+        check(nms_ops.launch_counts() == {"fixpoint": 1},
+              f"fixpoint {name}: launches {nms_ops.launch_counts()}")
+        errs = int((got != want).sum())
+        check(errs == 0, f"fixpoint {name}: {errs} keep flags differ from the plain version")
+        fresh = lambda: (conflict, alive.clone(), keep.clone())  # noqa: E731
+        ms = timed_on(nms_ops.finish_fixpoint_cuda, fresh)
+        plain_ms = timed_on(nms_ops.finish_fixpoint_plain, fresh)
+        # the bytes the kernel must move: the alive flags read, and for each
+        # round the conflict rows of the boxes alive in it (twice: the newly
+        # kept test and the suppression test), the keep flags written
+        rounds_rows, a, k = 0, alive.clone(), keep.clone()
+        while bool(a.any()):
+            rounds_rows += int(a.sum())
+            a, k = nms_ops._round(conflict, a, k)
+        nbytes = alive.numel() * 2 + 2 * rounds_rows * conflict.shape[-1]
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=nbytes / bw * 1e3,
+                          alive=int(alive.sum()))
+        print(f"fixpoint {name}: conflict {tuple(conflict.shape)}, {int(alive.sum())} boxes "
+              f"alive after the rounds, {rounds_rows} alive rows over the remaining rounds; "
+              f"kernel = plain version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{nbytes / bw * 1e3:.6f} ms ({nbytes} bytes)", flush=True)
+    return rows
+
+
+def phase_graph(dev, bw: float) -> dict:
+    """Phase 13 (see the module docstring); returns the fixpoint kernel's
+    kernels-line numbers."""
+    t_phase = time.perf_counter()
+    fix = phase_fixpoint(dev, bw)
+    for config in (HBB_CONFIG, SODAA_CONFIG):
+        check_graph_chain(config, graph_chain(config, dev))
+        torch.cuda.empty_cache()
+    for config in ("configs/baselines/aitodv2_fcos_r50_1x.py",
+                   "configs/baselines/aitodv2_rfla_fcos_1x.py"):
+        baseline_cli(dev, config)
+    nccl_graph(dev)
+    print(f"phase 13 total: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return fix["synthesis (main path)"]
+
+
 def build_all() -> None:
-    """nvcc for both sources at once (one process each), with -Xptxas -v."""
+    """nvcc for every source at once (one process each), with -Xptxas -v."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        logs = list(pool.map(lambda mod: mod.build(ptxas_verbose=True), (ra, rr)))
-    print(f"[2/12] build: {time.perf_counter() - t0:.1f} s -> {ra.LIBRARY}, {rr.LIBRARY} "
-          f"(sm_90a)", flush=True)
-    for mod, log in zip((ra, rr), logs):
+    mods = (ra, rr, nms_ops)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        logs = list(pool.map(lambda mod: mod.build(ptxas_verbose=True), mods))
+    print(f"[2/13] build: {time.perf_counter() - t0:.1f} s -> "
+          f"{', '.join(str(m.LIBRARY) for m in mods)} (sm_90a)", flush=True)
+    for mod, log in zip(mods, logs):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {mod.SOURCE.name}:", line.strip(), flush=True)
@@ -1934,8 +2503,8 @@ def kernel_rows(launches, errs, rows, src, names):
 
 
 def main(argv=None):
-    """Every phase; `--only 12` runs phases 1, 2 and 12 and prints no
-    result line."""
+    """Every phase; `--only 12` (or 13, or 12,13) runs phases 1, 2 and the
+    named ones and prints no result line."""
     argv = sys.argv[1:] if argv is None else argv
     only = ({int(x) for x in argv[argv.index("--only") + 1].split(",")} if "--only" in argv
             else None)
@@ -1947,14 +2516,14 @@ def main(argv=None):
     dev = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    print(f"[1/12] device: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
+    print(f"[1/13] device: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_all()
 
     def stage(k: int, text: str) -> None:
-        print(f"[{k}/12] {text} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
+        print(f"[{k}/13] {text} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
 
     if only:
         # a partial run (phases 1, 2 and the named ones), for work on one phase
@@ -1962,6 +2531,9 @@ def main(argv=None):
         if 12 in only:
             stage(12, "data parallel")
             phase_data_parallel(dev)
+        if 13 in only:
+            stage(13, "steps per dispatch: the step as a CUDA graph")
+            phase_graph(dev, peaks(name)[0])
         print(f"partial smoke (phases 1, 2, {sorted(only)}): "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
@@ -2034,6 +2606,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     stage(12, "data parallel")
     phase_data_parallel(dev)
+    torch.cuda.empty_cache()
+    stage(13, "steps per dispatch: the step as a CUDA graph")
+    fix = phase_graph(dev, bw)
 
     kernels = kernel_rows(launches, errs, rows, "point_teacher_torch/csrc/roi_align.cu", (
         ("roi_align_fwd", "fwd", 0, "point_teacher_tpu/ops/roi_align_pallas.py:49"),
@@ -2042,6 +2617,13 @@ def main(argv=None):
                            "point_teacher_torch/csrc/roi_align_rotated.cu", (
         ("roi_align_rotated_fwd", "fwd", 0, "point_teacher_tpu/ops/rroi_pallas.py:79"),
         ("roi_align_rotated_bwd", "bwd", 1, "point_teacher_tpu/ops/rroi_pallas.py:110")))
+    # not a Pallas kernel: it replaces the lax.while_loop that finishes JAX's
+    # fixpoint on the device
+    kernels.append({
+        "name": "nms_fixpoint", "route": "cuda", "source": "point_teacher_torch/csrc/nms_fixpoint.cu",
+        "replaces": "point_teacher_tpu/ops/nms.py:65", "launches": launches[2] + rlaunches[2],
+        "max_abs_err": 0.0, "ms": fix["ms"], "plain_ms": fix["plain_ms"],
+        "bound_ms": fix["bound_ms"], "bound_by": "bytes", "library_ms": None})
     print(f"smoke total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

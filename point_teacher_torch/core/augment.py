@@ -23,16 +23,31 @@ class AugBatch(NamedTuple):
     pseudo_valid: Tensor   # [B, G]
 
 
-def _flip(img, pts, boxes, direction: int, h: int, w: int):
-    """One image [H, W, 3]; `pts` a list of [G, 2]; boxes [G, 4]."""
-    if direction in (0, 2):
-        img = img.flip(1)
-        pts = [torch.stack([w - p[..., 0], p[..., 1]], -1) for p in pts]
-        boxes = torch.stack([w - boxes[..., 0], boxes[..., 1], w - boxes[..., 2], boxes[..., 3]], -1)
-    if direction in (1, 2):
-        img = img.flip(0)
-        pts = [torch.stack([p[..., 0], h - p[..., 1]], -1) for p in pts]
-        boxes = torch.stack([boxes[..., 0], h - boxes[..., 1], boxes[..., 2], h - boxes[..., 3]], -1)
+def flip_masks(direction):
+    """(horizontal, vertical) flip masks of the leading dims of `direction`
+    (an int or a tensor): each flip is selected per image, as JAX's vmapped
+    flip is, with no branch on a value, so none goes to the host."""
+    d = torch.as_tensor(direction)
+    return (d == 0) | (d == 2), (d == 1) | (d == 2)
+
+
+def _flip(img, pts, boxes, direction, h: int, w: int):
+    """img [..., H, W, 3]; `pts` a list of [..., G, 2]; boxes [..., G, 4];
+    direction an int or a tensor of the leading dims (flip_masks)."""
+    hf, vf = flip_masks(direction)
+    img = torch.where(hf[..., None, None, None], img.flip(-2), img)
+    img = torch.where(vf[..., None, None, None], img.flip(-3), img)
+    hp, vp = hf[..., None], vf[..., None]
+
+    def fx(x):
+        return torch.where(hp, w - x, x)
+
+    def fy(y):
+        return torch.where(vp, h - y, y)
+
+    pts = [torch.stack([fx(p[..., 0]), fy(p[..., 1])], -1) for p in pts]
+    boxes = torch.stack([fx(boxes[..., 0]), fy(boxes[..., 1]), fx(boxes[..., 2]),
+                         fy(boxes[..., 3])], -1)
     return img, pts, boxes
 
 
@@ -84,17 +99,17 @@ def _rescale(img, pts, boxes, s, h: int, w: int):
 
 
 def strong_augment(batch: AugBatch, direction: Tensor, u: Tensor) -> AugBatch:
-    """direction [B] int in {0..3}; u [B] uniforms in [0.8, 1.2)."""
+    """direction [B] int in {0..3}; u [B] uniforms in [0.8, 1.2). No host
+    sync: the flips are selected on the device, the scales stay tensors."""
     b, h, w, _ = batch.image.shape
-    dirs = direction.tolist()
     scales = torch.round(u.float() * 10.0) / 10.0
+    imgs, (gt_all, ps_all), boxes_all = _flip(
+        batch.image, [batch.gt_points, batch.pseudo_points], batch.pseudo_boxes,
+        direction, h, w)
     fields = {k: [] for k in AugBatch._fields}
     for i in range(b):
-        img, (gt_pts, ps_pts), boxes = _flip(
-            batch.image[i], [batch.gt_points[i], batch.pseudo_points[i]],
-            batch.pseudo_boxes[i], int(dirs[i]), h, w)
         img, (gt_pts, ps_pts), boxes, (gt_in, ps_in) = _rescale(
-            img, [gt_pts, ps_pts], boxes, scales[i], h, w)
+            imgs[i], [gt_all[i], ps_all[i]], boxes_all[i], scales[i], h, w)
         # normalise flipped boxes (x1 < x2, y1 < y2)
         boxes = torch.stack([torch.minimum(boxes[..., 0], boxes[..., 2]),
                              torch.minimum(boxes[..., 1], boxes[..., 3]),

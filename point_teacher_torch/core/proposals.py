@@ -12,6 +12,7 @@ import math
 import torch
 
 from ..ops.boxes import bbox_overlaps, cxcywh_to_xyxy, xyxy_to_cxcywh
+from ..utils.device import constant
 
 Tensor = torch.Tensor
 
@@ -29,22 +30,22 @@ def fine_proposals(boxes_xyxy: Tensor, cfg: FineProposalCfg, img_hw) -> Tuple[Te
     dev, dt = boxes_xyxy.device, boxes_xyxy.dtype
     c = xyxy_to_cxcywh(boxes_xyxy)
     wh = c[..., 2:4].clamp(cfg.min_scale, 1000.0)
-    ratios = torch.tensor([(rw, rh) for rw in cfg.base_ratios for rh in cfg.base_ratios],
-                          dtype=dt, device=dev)                               # [R2, 2]
+    ratios = constant([(rw, rh) for rw in cfg.base_ratios for rh in cfg.base_ratios],
+                      dt, dev)                                               # [R2, 2]
     r2 = ratios.shape[0]
     ctr = c[..., None, :2].expand(*c.shape[:-1], r2, 2)
     base = torch.cat([ctr, wh[..., None, :] * ratios], -1)                   # [..., G, R2, 4]
     variants = [base[..., None, :]]
     for ratio in cfg.shake_ratio or ():
-        offs = torch.tensor([(-ratio, 0.0), (ratio, 0.0), (0.0, -ratio), (0.0, ratio)],
-                            dtype=dt, device=dev)                             # [4, 2]
+        offs = constant([(-ratio, 0.0), (ratio, 0.0), (0.0, -ratio), (0.0, ratio)],
+                        dt, dev)                                             # [4, 2]
         shift = base[..., None, 2:4] * offs
         vctr = base[..., None, :2] + shift
         variants.append(torch.cat([vctr, base[..., None, 2:4].expand_as(vctr)], -1))
     stacked = torch.cat(variants, -2)                                        # [..., G, R2, V, 4]
     props = cxcywh_to_xyxy(stacked.reshape(*boxes_xyxy.shape[:-1], -1, 4))
     h, w = img_hw
-    img_box = torch.tensor([[0.0, 0.0, w, h]], dtype=dt, device=dev)
+    img_box = constant([[0.0, 0.0, w, h]], dt, dev)
     iof = bbox_overlaps(props.reshape(-1, 4), img_box, mode="iof")[:, 0]
     return props, (iof > 0.7).reshape(props.shape[:-1])
 

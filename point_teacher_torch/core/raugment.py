@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.rotated import norm_angle_le90
-from .augment import rescale_offsets, warp_rescale_image
+from .augment import flip_masks, rescale_offsets, warp_rescale_image
 
 Tensor = torch.Tensor
 
@@ -31,32 +31,28 @@ class RAugBatch(NamedTuple):
     pseudo_valid: Tensor   # [B, G]
 
 
-def _flip_rboxes(rb: Tensor, direction: int, h: int, w: int) -> Tensor:
+def _flip_rboxes(rb: Tensor, direction, h: int, w: int) -> Tensor:
+    """rb [..., G, 5]; direction of the leading dims. One flip negates the
+    angle; both keep it."""
     cx, cy, bw, bh, a = rb.unbind(-1)
-    if direction == 0:
-        return torch.stack([w - cx, cy, bw, bh, norm_angle_le90(-a)], -1)
-    if direction == 1:
-        return torch.stack([cx, h - cy, bw, bh, norm_angle_le90(-a)], -1)
-    if direction == 2:
-        return torch.stack([w - cx, h - cy, bw, bh, a], -1)
-    return rb
+    hf, vf = flip_masks(direction)
+    hf, vf = hf[..., None], vf[..., None]
+    return torch.stack([torch.where(hf, w - cx, cx), torch.where(vf, h - cy, cy), bw, bh,
+                        torch.where(hf ^ vf, norm_angle_le90(-a), a)], -1)
 
 
-def _flip_points(p: Tensor, direction: int, h: int, w: int) -> Tensor:
+def _flip_points(p: Tensor, direction, h: int, w: int) -> Tensor:
     x, y = p.unbind(-1)
-    if direction in (0, 2):
-        x = w - x
-    if direction in (1, 2):
-        y = h - y
-    return torch.stack([x, y], -1)
+    hf, vf = flip_masks(direction)
+    hf, vf = hf[..., None], vf[..., None]
+    return torch.stack([torch.where(hf, w - x, x), torch.where(vf, h - y, y)], -1)
 
 
-def _flip_image(img: Tensor, direction: int) -> Tensor:
-    if direction in (0, 2):
-        img = img.flip(1)
-    if direction in (1, 2):
-        img = img.flip(0)
-    return img
+def _flip_image(img: Tensor, direction) -> Tensor:
+    """img [..., H, W, C]."""
+    hf, vf = flip_masks(direction)
+    img = torch.where(hf[..., None, None, None], img.flip(-2), img)
+    return torch.where(vf[..., None, None, None], img.flip(-3), img)
 
 
 def _rotate_coords(p: Tensor, rad: Tensor, h: int, w: int) -> Tensor:
@@ -103,25 +99,27 @@ def canon_le90(rb: Tensor) -> Tensor:
 def strong_augment_rotated(batch: RAugBatch, direction: Tensor, u: Tensor,
                            angle: Tensor) -> RAugBatch:
     """direction [B] int in {0..3}; u [B] uniforms in [0.8, 1.2); angle [B]
-    rotation in whole degrees (1-19), float."""
+    rotation in whole degrees (1-19), float. No host sync: the flips are
+    selected on the device."""
     b, h, w, _ = batch.image.shape
-    dirs = [int(d) for d in direction.tolist()]
     scales = torch.round(u.float() * 10.0) / 10.0
     rads = -angle.to(batch.image.dtype) * (math.pi / 180.0)
 
-    imgs = torch.stack([_flip_image(batch.image[i], dirs[i]) for i in range(b)])
-    imgs = rotate_images_nearest(imgs, -rads)
+    imgs = rotate_images_nearest(_flip_image(batch.image, direction), -rads)
     imgs = torch.stack([warp_rescale_image(imgs[i], scales[i]) for i in range(b)])
+    gt_all = _flip_points(batch.gt_points, direction, h, w)
+    ps_all = _flip_points(batch.pseudo_points, direction, h, w)
+    rb_all = _flip_rboxes(batch.pseudo_rboxes, direction, h, w)
 
     def inframe(p):
         return (p[..., 0] >= 0) & (p[..., 0] < w) & (p[..., 1] >= 0) & (p[..., 1] < h)
 
     fields = {k: [] for k in RAugBatch._fields if k != "image"}
     for i in range(b):
-        d, s, rad = dirs[i], scales[i], rads[i]
-        gt_pts = _rotate_coords(_flip_points(batch.gt_points[i], d, h, w), rad, h, w)
-        ps_pts = _rotate_coords(_flip_points(batch.pseudo_points[i], d, h, w), rad, h, w)
-        ps_rb = _flip_rboxes(batch.pseudo_rboxes[i], d, h, w)
+        s, rad = scales[i], rads[i]
+        gt_pts = _rotate_coords(gt_all[i], rad, h, w)
+        ps_pts = _rotate_coords(ps_all[i], rad, h, w)
+        ps_rb = rb_all[i]
         ps_rb = torch.cat([_rotate_coords(ps_rb[..., :2], rad, h, w), ps_rb[..., 2:4],
                            (ps_rb[..., 4] + rad)[..., None]], -1)
         gt_valid = batch.gt_valid[i] & inframe(gt_pts)

@@ -26,6 +26,7 @@ from torch.autograd.profiler import record_function
 from ..ops.masks import rasterize_rboxes
 from ..ops.nms import nms_rotated
 from ..ops.rotated import obb2xyxy
+from ..utils.device import constant, to_device
 
 Tensor = torch.Tensor
 
@@ -67,7 +68,7 @@ def make_syn_draws(generator: torch.Generator, n_cls: int, batch_size: int, max_
         itv_u=torch.rand((b, NUM_CHAINS), generator=g),
         dev_u=torch.rand((b, NUM_CHAINS), generator=g),
     )
-    return SynDraws(*(t.to(device) for t in draws))
+    return SynDraws(*(to_device(t, device) for t in draws))
 
 
 def _sample_boxes(d: SynDraws, prior: Tensor, imgsize: int) -> Tensor:
@@ -87,7 +88,7 @@ def _sample_boxes(d: SynDraws, prior: Tensor, imgsize: int) -> Tensor:
     x = torch.minimum(torch.maximum(xy[..., 0], 0.71 * w), imgsize - 1 - 0.71 * w)
     y = torch.minimum(torch.maximum(xy[..., 1], 0.71 * h), imgsize - 1 - 0.71 * h)
     # a tensor divisor: CUDA divides by a python scalar through its reciprocal
-    score = (w * h) / torch.tensor(float(imgsize * imgsize), device=w.device) + 0.1
+    score = (w * h) / torch.full((), float(imgsize * imgsize), device=w.device) + 0.1
     return torch.stack([x, y, w, h, a, score, d.cls_ids.to(w.dtype)], -1)
 
 
@@ -135,7 +136,7 @@ def generate_black_paper_batch(draws: SynDraws, images: Tensor, gt_boxes: Tensor
     trains on the axis-aligned covers, the OBB path on the rotated boxes."""
     b, h, w, _ = images.shape
     g = gt_boxes.shape[1]
-    prior = torch.tensor(cfg.shape_list, dtype=images.dtype, device=images.device)
+    prior = constant(cfg.shape_list, images.dtype, images.device)
     dense_cls_max = prior.shape[0] // 2  # the first half of the classes are dense
     if gt_boxes.shape[-1] == 5:
         cxy = gt_boxes[..., :2]
@@ -159,8 +160,8 @@ def generate_black_paper_batch(draws: SynDraws, images: Tensor, gt_boxes: Tensor
     rboxes, keep = allb[:, g:, :5], (keep & inside)[:, g:]
     with record_function("pt.synthesis/raster"):
         mask = rasterize_rboxes(rboxes, keep, h, w)
-    img_syn = torch.where(mask[..., None], torch.tensor(fill_value, dtype=images.dtype,
-                                                        device=images.device), images)
+    img_syn = torch.where(mask[..., None], torch.full((), fill_value, dtype=images.dtype,
+                                                      device=images.device), images)
     return img_syn, xyxy[:, g:], rboxes, keep
 
 

@@ -8,7 +8,7 @@ baseline: its five levels (strides 8-128), each level's own top-k, then one
 multiclass NMS over all of them.
 
 The Point-Teacher detectors have a single stride-8 level. Everything is batched over the images: one forward,
-one batched NMS (one host sync a chunk of candidates, not one an image).
+one batched NMS (no host sync: ops/nms.py finishes the fixpoint on the device).
 Returns fixed-shape padded detections: dets [B, max_per_img, 5] (rotated:
 6), labels, valid. The functions that build_inference_fn,
 build_rotated_inference_fn, build_tta_inference_fn and

@@ -139,8 +139,8 @@ def _dn_diou_share(pred, target, base_elem, weight, avg_factor, hyper, eps, base
     base = (base_elem * m).sum() / count.clamp(min=1.0)
     share = (base * wsum + (_dn_bank_min(pred, target, hyper, eps) * w).sum()) / 2
     if avg_factor is None:
-        avg_factor = dist.global_sum(torch.tensor(float(base_elem.numel()),
-                                                  device=base_elem.device))
+        avg_factor = dist.global_sum(torch.full((), float(base_elem.numel()),
+                                                device=base_elem.device))
     return share / avg_factor
 
 
@@ -187,8 +187,8 @@ def gfocal_loss(p: Tensor, q: Tensor, w=1.0, eps: float = 1e-6) -> Tensor:
 
 def centerness_target(bbox_targets_ltrb: Tensor) -> Tensor:
     """FCOS centerness from (l, t, r, b) targets; min clamp 0.01 as in the reference."""
-    lr = bbox_targets_ltrb[..., [0, 2]]
-    tb = bbox_targets_ltrb[..., [1, 3]]
+    lr = bbox_targets_ltrb[..., 0::2]   # (l, r): slices, not a list index, which a
+    tb = bbox_targets_ltrb[..., 1::2]   # card would copy from the host
     c = ((lr.amin(-1).clamp(min=0.01) / lr.amax(-1).clamp(min=1e-12))
          * (tb.amin(-1).clamp(min=0.01) / tb.amax(-1).clamp(min=1e-12)))
     return torch.sqrt(c)

@@ -4,24 +4,47 @@ multiclass_nms and multiclass_nms_rotated).
 
 Greedy NMS as a parallel fixpoint: each round, every undecided box that no
 higher-ranked undecided box overlaps is kept, and every box a newly kept,
-higher-ranked box overlaps dies. `iters` rounds run unrolled; a loop then
-finishes any suppression chain deeper than that, so the result always
-equals sequential greedy NMS. Its test is the call's one device-to-host
-sync. Batched over any leading dimensions (the class NMS: one leading
-image dimension, or none).
+higher-ranked box overlaps dies. `iters` rounds run unrolled; then any
+suppression chain deeper than that is finished, so the result always equals
+sequential greedy NMS: on a CUDA tensor by the kernel of
+csrc/nms_fixpoint.cu (one launch, which returns at once when no box is
+alive; no host sync, so a CUDA graph can hold it), on a CPU tensor by its
+plain version, a loop of the same rounds while any box is alive. Batched
+over any leading dimensions (the class NMS: one leading image dimension, or
+none).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
 import torch
 from torch.nn import functional as F
 
+from . import _cuda_build
 from .boxes import bbox_overlaps
 from .rotated import rbox_iou, rbox_iou_tiled
 
 Tensor = torch.Tensor
+
+SOURCE = _cuda_build.CSRC / "nms_fixpoint.cu"
+LIBRARY = _cuda_build.BUILD_DIR / "libnms_fixpoint.so"
+
+# Launches of the fixpoint kernel since the last reset_launch_counts(); the
+# wrapper adds one where it launches the kernel and nowhere else.
+launches_fixpoint = 0
+
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    global launches_fixpoint
+    launches_fixpoint = 0
+
+
+def launch_counts() -> dict:
+    return {"fixpoint": launches_fixpoint}
 
 CLASS_NMS_CHUNK = 4096          # class-expanded candidates above this run in chunks
 ROTATED_CLASS_NMS_CHUNK = 2048  # the same for multiclass_nms_rotated
@@ -35,30 +58,93 @@ def stable_topk(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return values[..., :k], idx[..., :k]
 
 
+def _round(conflict: Tensor, alive: Tensor, keep: Tensor):
+    """One round of the fixpoint: (alive, keep) after it."""
+    newly = alive & ~(conflict & alive[..., None, :]).any(-1)
+    dead = (conflict & newly[..., None, :]).any(-1)
+    return alive & ~newly & ~dead, keep | newly
+
+
+def finish_fixpoint_plain(conflict: Tensor, alive: Tensor, keep: Tensor) -> Tensor:
+    """The plain version of the fixpoint's tail: rounds while any box is
+    alive (a host read each). Each round decides at least one box while any
+    is alive, so this ends. Returns keep."""
+    while bool(alive.any()):
+        alive, keep = _round(conflict, alive, keep)
+    return keep
+
+
+def build(ptxas_verbose: bool = False) -> str:
+    """Compile csrc/nms_fixpoint.cu into LIBRARY unless it is newer than the
+    source. Returns nvcc's output."""
+    return _cuda_build.build(SOURCE, LIBRARY, ptxas_verbose)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(str(LIBRARY))
+        lib.pt_nms_fixpoint.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.pt_nms_fixpoint.restype = ctypes.c_int
+        lib.pt_nms_fixpoint_max_n.argtypes = []
+        lib.pt_nms_fixpoint_max_n.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def finish_fixpoint_cuda(conflict: Tensor, alive: Tensor, keep: Tensor) -> Tensor:
+    """The fixpoint's tail by the kernel, on the current stream, with no
+    host read: conflict [..., N, N], alive and keep [..., N] bool,
+    contiguous, on one card. Updates alive (to all false) and keep in place;
+    returns keep."""
+    global launches_fixpoint
+    n = conflict.shape[-1]
+    if not (conflict.is_contiguous() and alive.is_contiguous() and keep.is_contiguous()):
+        raise ValueError("the NMS fixpoint kernel takes contiguous tensors")
+    problems = alive.numel() // n if n else 0
+    if problems == 0:
+        return keep
+    lib = _library()
+    if n > lib.pt_nms_fixpoint_max_n():
+        raise ValueError(f"the NMS fixpoint kernel holds at most {lib.pt_nms_fixpoint_max_n()} "
+                         f"boxes a problem in shared memory, got {n}")
+    with torch.cuda.device(conflict.device):
+        stream = torch.cuda.current_stream(conflict.device).cuda_stream
+        rc = lib.pt_nms_fixpoint(conflict.data_ptr(), alive.data_ptr(), keep.data_ptr(),
+                                 problems, n, stream)
+    if rc != 0:
+        raise RuntimeError(f"pt_nms_fixpoint launch failed with CUDA error {rc}")
+    launches_fixpoint += 1
+    return keep
+
+
+def finish_fixpoint(conflict: Tensor, alive: Tensor, keep: Tensor) -> Tensor:
+    """The fixpoint's tail: the kernel on a CUDA tensor (alive and keep
+    updated in place), the plain version on a CPU tensor."""
+    if conflict.device.type == "cpu":
+        return finish_fixpoint_plain(conflict, alive, keep)
+    if conflict.device.type != "cuda":
+        raise ValueError(f"NMS runs on cpu or cuda, not {conflict.device}")
+    return finish_fixpoint_cuda(conflict, alive, keep)
+
+
 def _greedy_suppress(iou: Tensor, order_scores: Tensor, iou_thr: float,
                      iters: int = 32) -> Tensor:
     """iou [..., N, N], scores [..., N] -> keep mask [..., N], matching greedy
     NMS in descending score order, equal scores ranked by index."""
-    n = iou.shape[-1]
     order = torch.argsort(-order_scores, dim=-1, stable=True)
     rank = torch.argsort(order, dim=-1, stable=True)
     higher = rank[..., None, :] < rank[..., :, None]          # [.., i, j]: j outranks i
     conflict = higher & (iou > iou_thr)                      # j can suppress i
-
-    def round_fn(alive, keep):
-        newly = alive & ~(conflict & alive[..., None, :]).any(-1)
-        dead = (conflict & newly[..., None, :]).any(-1)
-        return alive & ~newly & ~dead, keep | newly
-
     alive = torch.ones(iou.shape[:-1], dtype=torch.bool, device=iou.device)
     keep = torch.zeros_like(alive)
     for _ in range(iters):
-        alive, keep = round_fn(alive, keep)
-    # each round decides at least one box while any is alive: zero trips
-    # unless a suppression chain is deeper than `iters`
-    while bool(alive.any()):
-        alive, keep = round_fn(alive, keep)
-    return keep
+        alive, keep = _round(conflict, alive, keep)
+    # each round decides at least one box while any is alive: nothing is
+    # left unless a suppression chain is deeper than `iters`
+    return finish_fixpoint(conflict, alive, keep)
 
 
 def _masked_nms(iou: Tensor, scores: Tensor, iou_thr: float, valid: Optional[Tensor],
@@ -105,8 +191,8 @@ def _chunked_class_nms(boxes_iou: Tensor, scores_f: Tensor, valid: Tensor, iou_f
     output. The last chunk holds the remainder, unpadded (JAX pads it to
     `chunk` for a static shape; its padding is never alive). Returns
     (kept_scores [B, max_out] descending, -inf where empty, kept_idx
-    [B, max_out] into the M candidates, kept_valid [B, max_out]). One host
-    sync a chunk (the fixpoint's), for the whole batch."""
+    [B, max_out] into the M candidates, kept_valid [B, max_out]). No host
+    sync (the fixpoint's tail: finish_fixpoint)."""
     b, m, d = boxes_iou.shape
     nchunks = -(-m // chunk)
     scores_m = torch.where(valid, scores_f, -torch.inf)

@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.device import constant
 from . import _cuda_build
 
 Tensor = torch.Tensor
@@ -299,5 +300,4 @@ def window_clamp(wy0: Tensor, wx0: Tensor, win: int, feat_hw) -> Tensor:
 def full_map_clamp(shape, feat_hw, device) -> Tensor:
     """Clamp bounds [*shape, 4] int32 of the whole map (the unclamped pool)."""
     h, w = feat_hw
-    bounds = torch.tensor([0, h - 1, 0, w - 1], dtype=torch.int32, device=device)
-    return bounds.expand(*shape, 4)
+    return constant([0, h - 1, 0, w - 1], torch.int32, device).expand(*shape, 4)

@@ -156,7 +156,7 @@ def global_mean(x: Tensor) -> Tensor:
     """The mean of x's elements over the world (x.mean() without a group)."""
     if not active():
         return x.mean()
-    total, count = global_sum(x.detach().sum(), torch.tensor(float(x.numel()), device=x.device))
+    total, count = global_sum(x.detach().sum(), torch.full((), float(x.numel()), device=x.device))
     return (total / count).to(x.dtype)
 
 
@@ -204,29 +204,27 @@ def gather_rows(*xs: Tensor):
 @torch.no_grad()
 def reduce_grads(model: torch.nn.Module) -> None:
     """After backward: every trainable parameter's gradient summed over the
-    world, in one all-reduce of a flat f32 buffer. A gradient that is None
-    counts as zeros, so every rank sends the same layout, and stays None
-    where it is None on every rank."""
+    world, in one all-reduce of a flat f32 buffer, with no host read (so a
+    CUDA graph can hold it). A gradient that is None is sent as zeros, so
+    that every rank sends the same layout, and every rank gets the world's
+    sum back, whichever ranks had a gradient (zeros where none had: the
+    optimizer applies a zero gradient as it applies None)."""
     if not active():
         return
     params = [p for p in model.parameters() if p.requires_grad]
     if not params:
         return
-    dev = params[0].device
     flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
-                      .reshape(-1).to(torch.float32) for p in params]
-                     + [torch.tensor([float(p.grad is not None) for p in params], device=dev)])
+                      .reshape(-1).to(torch.float32) for p in params])
     dist.all_reduce(flat)
-    has = flat[-len(params):].tolist()
     at = 0
-    for p, h in zip(params, has):
+    for p in params:
         k = p.numel()
-        if h > 0:
-            g = flat[at:at + k].view_as(p).to(p.dtype)
-            if p.grad is None:
-                p.grad = g.clone()
-            else:
-                p.grad.copy_(g)
+        g = flat[at:at + k].view_as(p)
+        if p.grad is None:
+            p.grad = g.to(p.dtype).clone()
+        else:
+            p.grad.copy_(g)
         at += k
 
 

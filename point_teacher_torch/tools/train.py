@@ -3,7 +3,7 @@
   python -m point_teacher_torch.tools.train <config.py> [--work-dir D]
       [--resume-from D/epoch_1.pth] [--seed S] [--cpu] [--cpu-devices N]
       [--synthetic-data N] [--max-steps K] [--ckpt-interval E] [--val-interval E]
-      [--cfg-options pt.burn_in_step=100 model.pretrained=R50.pth ...]
+      [--steps-per-dispatch K] [--cfg-options pt.burn_in_step=100 model.pretrained=R50.pth ...]
   torchrun --nproc_per_node=GPUS -m point_teacher_torch.tools.train <config.py> ...
 
 Runs on the CUDA card unless --cpu is given; asked for CUDA without a card it
@@ -26,7 +26,16 @@ its image folder; SODA-A: the divData per-patch json and image folders),
 or N fabricated images with --synthetic-data N. An epoch is
 max(n_images // batch_size, 1) steps; --max-steps is an absolute step.
 
-Every step prints one JSON line of its metrics (with step, epoch, step_ms);
+--steps-per-dispatch K (default 1) runs the steps in groups of up to K,
+each group one dispatch (train/superstep.py, the counterpart of JAX's
+lax.scan superstep): on a card K replays of one captured CUDA graph of the
+step for each phase, on the CPU K plain steps; the result is K sequential
+steps. A group is cut when it is full, at the phase switch (its last step
+is burn_in_step), at --max-steps and at the end of an epoch; a group of one
+runs the plain step. The host reads a group's metrics once, after it.
+
+Every step prints one JSON line of its metrics (with step, epoch, step_ms;
+in a group of K steps, step_ms is the group's wall over K);
 D/train_log.jsonl gets the metrics averaged every 50 steps and at each
 epoch's end (`mode: "train"`) and each validation (`mode: "val"`). Every
 --ckpt-interval epochs and when the run stops the whole train state goes to
@@ -59,12 +68,13 @@ from ..models.detector import StudentFCOS
 from ..models.rfla_fcos_head import RFLAFCOS
 from ..models.rotated_detector import StudentRotatedFCOS
 from ..parallel import dist, launch
-from ..train.fcos_baseline import build_fcos_train_step
+from ..train.fcos_baseline import build_fcos_train_step, build_fcos_train_step_scan
 from ..train.optim import lr_at
-from ..train.rfla_baseline import build_rfla_train_step
-from ..train.rsteps import build_rotated_train_step
+from ..train.rfla_baseline import build_rfla_train_step, build_rfla_train_step_scan
+from ..train.rsteps import build_rotated_train_step, build_rotated_train_step_scan
 from ..train.state import Batch, create_train_state
-from ..train.steps import build_train_step
+from ..train.steps import build_train_step, build_train_step_scan
+from ..utils.device import to_device
 
 
 def resolve_device(cpu: bool) -> torch.device:
@@ -120,13 +130,14 @@ def synthetic_dataset(n_images, cfg_pt, seed=0, rotated=False):
 
 
 def to_batch(arrays: dict, device) -> Batch:
-    return Batch(
-        image=torch.as_tensor(arrays["image"], dtype=torch.float32, device=device),
-        gt_boxes=torch.as_tensor(arrays["gt_boxes"], dtype=torch.float32, device=device),
-        gt_labels=torch.as_tensor(arrays["gt_labels"], dtype=torch.long, device=device),
-        gt_valid=torch.as_tensor(arrays["gt_valid"], dtype=torch.bool, device=device),
-        image_ids=torch.as_tensor(arrays["image_ids"], dtype=torch.long, device=device),
-    )
+    """A numpy batch on `device` (on a card through pinned memory, without a
+    host sync)."""
+    def put(key, dtype):
+        return to_device(torch.as_tensor(arrays[key], dtype=dtype), device)
+
+    return Batch(image=put("image", torch.float32), gt_boxes=put("gt_boxes", torch.float32),
+                 gt_labels=put("gt_labels", torch.long), gt_valid=put("gt_valid", torch.bool),
+                 image_ids=put("image_ids", torch.long))
 
 
 def build_model(cfg: dict, seed: int, device, dtype=None):
@@ -150,16 +161,19 @@ def build_model(cfg: dict, seed: int, device, dtype=None):
     return model_cls(num_stages=pt.num_stages, **common).to(device)
 
 
-def build_step(cfg: dict, pt):
-    """The step function of the config's trainer."""
+def build_step(cfg: dict, pt, scan: bool = False):
+    """The step function of the config's trainer, or with `scan` its
+    superstep, scan(state, batches, phase1) -> {metric: Tensor [K]}."""
     trainer = cfg.get("trainer", "point_teacher")
     if trainer == "fcos":
-        return build_fcos_train_step(pt)
+        return (build_fcos_train_step_scan if scan else build_fcos_train_step)(pt)
     if trainer == "rfla_fcos":
-        return build_rfla_train_step(pt)
+        return (build_rfla_train_step_scan if scan else build_rfla_train_step)(pt)
     if trainer != "point_teacher":
         raise ValueError(f"unknown trainer {trainer!r}")
-    return build_rotated_train_step(pt) if cfg.get("rotated") else build_train_step(pt)
+    if cfg.get("rotated"):
+        return (build_rotated_train_step_scan if scan else build_rotated_train_step)(pt)
+    return (build_train_step_scan if scan else build_train_step)(pt)
 
 
 def setup(cfg: dict, n_images: int, seed: int, device, dtype=None):
@@ -247,9 +261,10 @@ def say(text: str) -> None:
 
 def train(cfg: dict, work_dir: str, seed: int = 0, device=None, synthetic_n: int = 0,
           max_steps: int = 0, resume_from: str | None = None, ckpt_interval: int = 1,
-          val_interval: int = 0):
+          val_interval: int = 0, steps_per_dispatch: int = 1):
     """The training loop of tools/train.py on `device`, this rank's part of
-    it in a world of ranks; returns the train state."""
+    it in a world of ranks, `steps_per_dispatch` steps a dispatch; returns
+    the train state."""
     from ..utils.checkpoint import link_checkpoint, load_checkpoint, save_checkpoint
     from ..utils.logging import TrainLogger
 
@@ -266,22 +281,50 @@ def train(cfg: dict, work_dir: str, seed: int = 0, device=None, synthetic_n: int
     logger = TrainLogger(work_dir, interval=50)
     validate = Validator(cfg, pt, work_dir, n_images, synthetic_n, logger)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda _d=None: None)
+    group = max(1, steps_per_dispatch)
+    scan_fn = build_step(cfg, pt, scan=True) if group > 1 else None
+
+    def dispatch(pending, epoch) -> bool:
+        """Run the pending batches as one group (the root tools/train.py run_pending);
+        log each step; True once --max-steps is reached."""
+        phase1 = is_phase1(state.step, pt.burn_in_step)
+        t0 = time.perf_counter()
+        if scan_fn is not None and len(pending) > 1:
+            ms = scan_fn(state, [to_batch(a, device) for a in pending], phase1=phase1)
+            table = torch.stack(list(ms.values()), 1).cpu().tolist()  # the one host read
+            records = [dict(zip(ms, row)) for row in table]
+        else:
+            records = []
+            for arrays in pending:
+                metrics = step_fn(state, to_batch(arrays, device), phase1=phase1)
+                sync(device)
+                records.append({k: float(v) for k, v in metrics.items()})
+        step_ms = (time.perf_counter() - t0) * 1e3 / len(pending)
+        first = state.step - len(records)
+        for i, record in enumerate(records):
+            at = first + i + 1
+            logger.step(at, epoch + 1, record, lr=lr_at(pt.optim, at))
+            record.update(step=at, epoch=epoch + 1, step_ms=step_ms)
+            say(json.dumps(record))
+        return bool(max_steps and state.step >= max_steps)
+
     stop = False
     try:
         for epoch in range(state.step // pt.optim.iters_per_epoch, pt.optim.max_epochs):
+            pending = []
             for arrays in batches(pt.batch_size):
-                phase1 = is_phase1(state.step, pt.burn_in_step)
-                t0 = time.perf_counter()
-                metrics = step_fn(state, to_batch(arrays, device), phase1=phase1)
-                sync(device)
-                record = {k: float(v) for k, v in metrics.items()}
-                logger.step(state.step, epoch + 1, record, lr=lr_at(pt.optim, state.step))
-                record.update(step=state.step, epoch=epoch + 1,
-                              step_ms=(time.perf_counter() - t0) * 1e3)
-                say(json.dumps(record))
-                if max_steps and state.step >= max_steps:
-                    stop = True
+                pending.append(arrays)
+                after = state.step + len(pending)
+                # flush when the group is full, at the phase switch (one graph,
+                # or program, a phase) and at --max-steps
+                if (len(pending) >= group or after == pt.burn_in_step + 1
+                        or (max_steps and after >= max_steps)):
+                    stop = dispatch(pending, epoch)
+                    pending = []
+                if stop:
                     break
+            if pending:
+                stop = dispatch(pending, epoch)
             logger.emit(state.step, epoch + 1, lr=lr_at(pt.optim, state.step))
             if val_interval and ((epoch + 1) % val_interval == 0 or stop):
                 validate(state, epoch + 1, state.step)
@@ -317,6 +360,9 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-interval", type=int, default=1, help="epochs between checkpoints")
     ap.add_argument("--val-interval", type=int, default=0, metavar="EPOCHS",
                     help="evaluate the teacher every N epochs and keep best.pth (0 = off)")
+    ap.add_argument("--steps-per-dispatch", type=int, default=1, metavar="K",
+                    help="run K train steps a dispatch (on a card K replays of one CUDA "
+                         "graph of the step; the result is K sequential steps)")
     return ap.parse_args(argv)
 
 
@@ -324,7 +370,8 @@ def _run(args, device):
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
     work_dir = args.work_dir or cfg.get("work_dir", "work_dirs/default")
     return train(cfg, work_dir, args.seed, device, args.synthetic_data, args.max_steps,
-                 args.resume_from, args.ckpt_interval, args.val_interval)
+                 args.resume_from, args.ckpt_interval, args.val_interval,
+                 args.steps_per_dispatch)
 
 
 def main(argv=None):

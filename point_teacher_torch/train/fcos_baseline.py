@@ -25,6 +25,7 @@ from ..parallel import dist
 from .config import PointTeacherConfig
 from .state import Batch, TrainState, ema_update
 from .steps import _flatten_head
+from .superstep import build_scan
 
 Tensor = torch.Tensor
 
@@ -99,3 +100,10 @@ def build_fcos_train_step(cfg: PointTeacherConfig):
             total_loss=total).items()})
 
     return step
+
+
+def build_fcos_train_step_scan(cfg: PointTeacherConfig):
+    """Returns scan(state, batches, phase1=False) -> {metric: Tensor [K]}:
+    K sequential steps of build_fcos_train_step's step (no draws); on a card
+    K replays of one captured CUDA graph of the step (train/superstep.py)."""
+    return build_scan(build_fcos_train_step(cfg))

@@ -8,7 +8,7 @@ Order, as optax.chain(clip_by_global_norm, multi_transform) runs it:
 2. per label: "base" adds weight decay then momentum (trace: m <- g + mu m)
    then scales by -lr; "bias" the same at lr x bias_lr_mult and no decay;
    "frozen" is set to zero;
-3. p <- p + update.
+3. p <- p + update, as one fused multiply-add of -lr and the trace.
 The schedule is read at the number of updates made before this one.
 Parameters are updated in place.
 """
@@ -19,6 +19,7 @@ from typing import Dict, List
 import torch
 from torch import nn
 
+from ..utils.device import copy_from_host
 from .config import OptimCfg
 
 
@@ -55,6 +56,11 @@ def lr_at(cfg: OptimCfg, step: int, lr_mult: float = 1.0) -> float:
 
 
 class PointTeacherSGD:
+    """The update, its learning rates read from a device tensor: `neg_lr`
+    holds -[base, bias] of the update to come, written by step() from the
+    host counter `count` (one more an update), or by the caller when
+    `external_lr` is set (a CUDA graph of the step: train/superstep.py)."""
+
     def __init__(self, model: nn.Module, cfg: OptimCfg):
         self.cfg = cfg
         self.count = 0
@@ -66,10 +72,25 @@ class PointTeacherSGD:
             self.groups[label].append(p)
         self.params = [p for p in model.parameters()]
         self.trace = {k: [torch.zeros_like(p) for p in self.groups[k]] for k in ("base", "bias")}
+        dev = self.params[0].device if self.params else torch.device("cpu")
+        self.neg_lr = torch.zeros(2, dtype=torch.float32, device=dev)
+        # each parameter's view of its group's -lr, for the fused update
+        self._neg_lr_like = {label: [self.neg_lr[i].expand_as(p) for p in self.groups[label]]
+                             for i, label in enumerate(("base", "bias"))}
+        self.external_lr = False
+
+    def neg_lr_values(self, count: int) -> torch.Tensor:
+        """-[base, bias] learning rates of update `count`, f32 on the host
+        (lr_at in f64, rounded once, as a Python float alpha was)."""
+        return -torch.tensor([lr_at(self.cfg, count),
+                              lr_at(self.cfg, count, self.cfg.bias_lr_mult)], dtype=torch.float32)
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        """Apply one update from the parameters' .grad; returns the global norm."""
+        """Apply one update from the parameters' .grad; returns the global norm.
+        No host sync: the learning rates come from `neg_lr`."""
+        if not self.external_lr:
+            copy_from_host(self.neg_lr, self.neg_lr_values(self.count))
         grads = [p.grad for p in self.params if p.grad is not None]
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))) if grads \
             else torch.zeros(())
@@ -78,8 +99,7 @@ class PointTeacherSGD:
         # where(keep, g, (g / norm) * max_norm), as optax
         denom = torch.where(keep, torch.ones_like(norm), norm)
         mult = torch.where(keep, 1.0, max_norm).to(norm.dtype)
-        for label, wd, mult_lr in (("base", self.cfg.weight_decay, 1.0),
-                                   ("bias", 0.0, self.cfg.bias_lr_mult)):
+        for label, wd in (("base", self.cfg.weight_decay), ("bias", 0.0)):
             params = self.groups[label]
             if not params:
                 continue
@@ -90,6 +110,7 @@ class PointTeacherSGD:
             trace = self.trace[label]
             torch._foreach_mul_(trace, self.cfg.momentum)
             torch._foreach_add_(trace, g)
-            torch._foreach_add_(params, trace, alpha=-lr_at(self.cfg, self.count, mult_lr))
+            # p + (-lr) x trace, one rounding: what add_ with a float alpha did
+            torch._foreach_addcmul_(params, trace, self._neg_lr_like[label])
         self.count += 1
         return norm

@@ -22,6 +22,7 @@ from ..parallel import dist
 from .config import PointTeacherConfig
 from .fcos_baseline import dense_box_losses, update
 from .state import Batch, TrainState, ema_update
+from .superstep import build_scan
 
 Tensor = torch.Tensor
 
@@ -59,3 +60,10 @@ def build_rfla_train_step(cfg: PointTeacherConfig):
             num_pos=num_pos).items()})
 
     return step
+
+
+def build_rfla_train_step_scan(cfg: PointTeacherConfig):
+    """Returns scan(state, batches, phase1=False) -> {metric: Tensor [K]}:
+    K sequential steps of build_rfla_train_step's step (no draws); on a card
+    K replays of one captured CUDA graph of the step (train/superstep.py)."""
+    return build_scan(build_rfla_train_step(cfg))

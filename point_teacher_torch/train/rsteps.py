@@ -30,6 +30,7 @@ from .mil import mil_stage_rotated
 from .rdense_losses import RDenseLossCfg, pseudo_branch_loss_rotated, syn_branch_loss_rotated
 from .state import Batch, TrainState, ema_update
 from .steps import Draws, make_draws, synthesize, write_cache
+from .superstep import build_scan
 
 Tensor = torch.Tensor
 
@@ -219,3 +220,12 @@ def build_rotated_train_step(cfg: PointTeacherConfig, rdense: Optional[RDenseLos
         return dist.sum_losses({k: v.detach() for k, v in metrics.items()})
 
     return step
+
+
+def build_rotated_train_step_scan(cfg: PointTeacherConfig, rdense: Optional[RDenseLossCfg] = None):
+    """Returns scan(state, batches, phase1=False) -> {metric: Tensor [K]}:
+    K sequential steps of build_rotated_train_step's step, their draws from
+    the state's generator in the order of K calls; on a card K replays of
+    one captured CUDA graph of the step (train/superstep.py)."""
+    return build_scan(build_rotated_train_step(cfg, rdense),
+                      lambda g, n, phase1: make_draws(g, cfg, n, "cpu", phase1))

@@ -35,10 +35,12 @@ from ..core.pseudo import generate_pseudo_boxes
 from ..core.synthetic import SynDraws, generate_black_paper_batch, make_syn_draws
 from ..ops.boxes import bbox_overlaps, grid_points, xyxy_to_cxcywh
 from ..parallel import dist
+from ..utils.device import to_device
 from .config import PointTeacherConfig
 from .dense_losses import pseudo_branch_loss, syn_branch_loss
 from .mil import mil_stage
 from .state import Batch, TrainState, ema_update
+from .superstep import build_scan
 
 Tensor = torch.Tensor
 
@@ -54,17 +56,19 @@ class Draws(NamedTuple):
 
 def make_draws(generator: torch.Generator, cfg: PointTeacherConfig, batch_size: int,
                device, phase1: bool = False) -> Draws:
+    """One step's draws from the CPU `generator`, on `device` (on a card
+    copied from pinned memory, without a host sync)."""
     g, b = generator, batch_size
     neg = []
     for stage in range(cfg.num_stages):
         nn_ = cfg.fine_proposal_cfg[stage].gen_num_neg
         neg.append(torch.rand((b, 4, nn_), generator=g) if nn_ > 0 else None)
     return Draws(
-        point_u=torch.rand((b, cfg.max_gt, 2), generator=g).to(device),
-        aug_direction=torch.randint(0, 4, (b,), generator=g).to(device),
-        aug_u=(0.8 + 0.4 * torch.rand((b,), generator=g)).to(device),
-        neg_u=tuple(None if u is None else u.to(device) for u in neg),
-        aug_angle=torch.randint(1, 20, (b,), generator=g).float().to(device),
+        point_u=to_device(torch.rand((b, cfg.max_gt, 2), generator=g), device),
+        aug_direction=to_device(torch.randint(0, 4, (b,), generator=g), device),
+        aug_u=to_device(0.8 + 0.4 * torch.rand((b,), generator=g), device),
+        neg_u=tuple(None if u is None else to_device(u, device) for u in neg),
+        aug_angle=to_device(torch.randint(1, 20, (b,), generator=g).float(), device),
         syn=(make_syn_draws(g, len(cfg.shape_list), b, cfg.max_gt, device) if phase1
              else None),
     )
@@ -170,7 +174,7 @@ def write_cache(state: TrainState, ids, origin, new_refined, gate: Optional[Tens
     ids, origin, new_refined = dist.gather_rows(ids, origin, new_refined)
     state.refined_points[ids] = new_refined
     state.origin_points[ids] = origin
-    state.points_cached[ids] = True
+    state.points_cached[ids] = torch.ones_like(ids, dtype=torch.bool)
 
 
 def build_train_step(cfg: PointTeacherConfig):
@@ -294,3 +298,13 @@ def build_train_step(cfg: PointTeacherConfig):
         return dist.sum_losses({k: v.detach() for k, v in metrics.items()})
 
     return step
+
+
+def build_train_step_scan(cfg: PointTeacherConfig):
+    """Returns scan(state, batches, phase1=False) -> {metric: Tensor [K]}:
+    K sequential steps of build_train_step's step over the K batches, their
+    draws from the state's generator in the order of K calls; on a card K
+    replays of one captured CUDA graph of the step (train/superstep.py)."""
+    cfg = cfg.normalized()
+    return build_scan(build_train_step(cfg),
+                      lambda g, n, phase1: make_draws(g, cfg, n, "cpu", phase1))

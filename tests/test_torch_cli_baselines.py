@@ -20,6 +20,7 @@ from test_torch_cli_train import (FCOS, RFLA, SMALL, SODAA, _records, aitod,  # 
                                   drop_checkpoints, run_main)
 from test_torch_fcos_baseline import one_thread
 from test_torch_train_loader import write_sodaa_patches
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("config,keys", [

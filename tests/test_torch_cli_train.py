@@ -35,6 +35,7 @@ from point_teacher_torch.utils import checkpoint as ckpt
 from point_teacher_torch.utils.logging import TrainLogger
 from test_torch_fcos_baseline import one_thread
 from test_torch_train_loader import write_coco, write_sodaa_patches
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HBB = os.path.join(REPO, "configs/point_teacher/aitodv2_point_teacher_0.py")

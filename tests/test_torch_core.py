@@ -21,6 +21,7 @@ from point_teacher_torch.core import costs as tc
 from point_teacher_torch.core import proposals as tp
 from point_teacher_torch.core import pseudo as tps
 from point_teacher_torch.core import targets as tt
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 IMG, STRIDE, G, C = 64, 8, 6, 4
 RTOL, ATOL = 1e-5, 1e-5
@@ -166,10 +167,10 @@ def test_flip_and_rescale_match_jax(direction, scale):
         np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_strong_augment_with_injected_draws(seed):
-    img, pts, gv, ps_pts, boxes, pv = _aug_batch(10 + seed)
-    key = jax.random.PRNGKey(seed)
+def _check_strong_augment(arrays, key):
+    """The port's strong_augment with the draws JAX's makes from `key`
+    against JAX's; returns the flip directions drawn."""
+    img, pts, gv, ps_pts, boxes, pv = arrays
     want = jaug.strong_augment(key, jaug.AugBatch(*[jnp.asarray(x) for x in
                                                    (img, pts, gv, ps_pts, boxes, pv)]))
     dirs, us = [], []
@@ -184,6 +185,19 @@ def test_strong_augment_with_injected_draws(seed):
         _close(getattr(got, name), getattr(want, name))
     for name in ("gt_valid", "pseudo_valid"):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
+    return dirs
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_strong_augment_with_injected_draws(seed):
+    _check_strong_augment(_aug_batch(10 + seed), jax.random.PRNGKey(seed))
+
+
+def test_strong_augment_all_four_directions_in_one_batch():
+    """Four images that JAX's draws from PRNGKey(1) flip four ways: the port
+    selects each image's flip on the device (no branch on a host value)."""
+    assert sorted(_check_strong_augment(_aug_batch(30, b=4), jax.random.PRNGKey(1))) == \
+        [0, 1, 2, 3]
 
 
 @pytest.mark.parametrize("position", [0.0, 0.6])

@@ -34,6 +34,7 @@ from point_teacher_torch.utils.jax_weights import port_arrays
 from point_teacher_torch.utils.visualize import imshow_det_bboxes
 from point_teacher_tpu.models.detector import StudentFCOS as JaxStudent
 from test_torch_fcos_baseline import one_thread
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HBB = os.path.join(REPO, "configs/point_teacher/aitodv2_point_teacher_0.py")

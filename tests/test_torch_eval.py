@@ -33,6 +33,7 @@ from point_teacher_torch.train.config import InferenceCfg, PointTeacherConfig
 from point_teacher_torch.utils import checkpoint as ckpt
 from test_torch_inference import match_dets, pair  # noqa: F401  (the module's JAX fixture)
 from test_torch_models import IMG, NUM_CLASSES
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs/point_teacher/aitodv2_point_teacher_0.py")

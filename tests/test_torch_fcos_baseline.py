@@ -23,6 +23,7 @@ from point_teacher_torch.train.fcos_baseline import build_fcos_train_step
 from point_teacher_torch.train.state import Batch, create_train_state
 from point_teacher_torch.utils.jax_weights import load_jax_params, port_arrays
 from test_torch_models import NUM_CLASSES, random_flax_params
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 B, IMG, G, NUM_IMAGES = 2, 64, 6, 4
 

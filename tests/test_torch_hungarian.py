@@ -16,6 +16,7 @@ import torch
 
 from point_teacher_torch.core import hungarian as port
 from point_teacher_tpu.core import hungarian as ref
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 C = 5
 

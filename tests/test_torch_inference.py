@@ -28,6 +28,7 @@ from point_teacher_torch.ops.nms import stable_topk
 from point_teacher_torch.train.config import InferenceCfg
 from point_teacher_torch.utils.jax_weights import load_jax_params
 from test_torch_models import IMG, NUM_CLASSES, random_flax_params
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 # the full-width decode: 100 x 100 points at stride 8, 8 classes
 FULL, FULL_C = 800, 8

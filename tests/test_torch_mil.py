@@ -18,6 +18,7 @@ from point_teacher_torch.models.detector import StudentFCOS
 from point_teacher_torch.train.mil import mil_stage
 from point_teacher_torch.utils.jax_weights import load_jax_params, port_arrays
 from test_torch_models import NUM_CLASSES, random_flax_params
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 B, IMG, G, NNEG = 2, 64, 6, 8
 FINE = FineProposalCfg(base_ratios=(1.0,), shake_ratio=None, min_scale=0.0, gen_num_neg=NNEG)

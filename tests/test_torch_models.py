@@ -12,6 +12,7 @@ from point_teacher_tpu.models.detector import StudentFCOS as JaxStudent
 from point_teacher_tpu.utils.torch_port import load_torch_detector_into
 from point_teacher_torch.models.detector import StudentFCOS
 from point_teacher_torch.utils.jax_weights import load_jax_params
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 NUM_CLASSES, IMG = 4, 64
 

@@ -10,6 +10,7 @@ import torch
 
 from point_teacher_tpu.ops import nms as jnms
 from point_teacher_torch.ops import nms as pnms
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 THR, IOU, MAX_OUT = 0.05, 0.5, 3000
 
@@ -125,3 +126,35 @@ def test_stable_topk_matches_lax_top_k_on_ties(k):
     if k == 8:
         assert not np.array_equal(torch.topk(torch.from_numpy(x), k).indices.numpy(),
                                   np.asarray(want_i))
+
+
+def test_suppression_chain_deeper_than_the_rounds_matches_exact_jax():
+    """200 boxes in a row, each overlapping only its neighbours, scores
+    falling along the row: greedy keeps every other box, and the parallel
+    fixpoint decides two boxes a round, so 64 rounds leave boxes alive and
+    finish_fixpoint (on the CPU its plain version, on a card the kernel of
+    csrc/nms_fixpoint.cu) completes the chain. Equal to JAX's exact
+    sequential NMS (iters=None)."""
+    n = 200
+    x = np.arange(n, dtype=np.float32) * 4.0
+    boxes = np.stack([x, np.zeros(n, np.float32), x + 10.0, np.full(n, 10.0, np.float32)], -1)
+    scores = np.linspace(1.0, 0.1, n, dtype=np.float32)
+    want = np.asarray(jnms.nms(jnp.asarray(boxes), jnp.asarray(scores), 0.3, iters=None))
+    got = pnms.nms(torch.from_numpy(boxes), torch.from_numpy(scores), 0.3, iters=64).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(want, np.arange(n) % 2 == 0)
+    # 64 rounds alone leave the chain's tail undecided
+    calls = []
+    real = pnms.finish_fixpoint
+    try:
+        pnms.finish_fixpoint = lambda c, alive, keep: calls.append(int(alive.sum())) or keep
+        partial = pnms.nms(torch.from_numpy(boxes), torch.from_numpy(scores), 0.3,
+                           iters=64).numpy()
+    finally:
+        pnms.finish_fixpoint = real
+    assert calls[0] > 0 and partial.sum() < want.sum()
+    # nothing alive: the tail leaves keep as it is
+    keep = torch.tensor([True, False, True])
+    assert torch.equal(pnms.finish_fixpoint(torch.zeros(3, 3, dtype=torch.bool),
+                                            torch.zeros(3, dtype=torch.bool), keep), keep)
+

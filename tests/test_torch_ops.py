@@ -10,6 +10,7 @@ from point_teacher_tpu.ops import boxes as jb
 from point_teacher_tpu.ops import losses as jl
 from point_teacher_torch.ops import boxes as tb
 from point_teacher_torch.ops import losses as tl
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 

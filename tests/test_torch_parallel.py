@@ -43,6 +43,7 @@ from point_teacher_torch.train.rfla_baseline import build_rfla_train_step
 from point_teacher_torch.train.rsteps import build_rotated_train_step
 from point_teacher_torch.train.state import Batch, create_train_state
 from point_teacher_torch.train.steps import build_train_step, make_draws, synthesize
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 B, IMG, G, NNEG, NUM_IMAGES, WORLD = 2, 64, 6, 8, 16, 2
 NUM_CLASSES = 4

@@ -33,6 +33,7 @@ from point_teacher_torch.evalx.rgeometry import obb2poly_np
 from point_teacher_torch.tools import test as test_cli
 from point_teacher_torch.tools import train as cli
 from test_torch_cli_train import SMALL, drop_checkpoints, run_main
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HBB = os.path.join(REPO, "configs/point_teacher/aitodv2_point_teacher_0.py")

@@ -23,6 +23,7 @@ from point_teacher_torch.models.rotated_detector import StudentRotatedFCOS
 from point_teacher_torch.utils import torch_port as pport
 from point_teacher_torch.utils.jax_weights import port_arrays
 from test_torch_models import NUM_CLASSES
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 STAGES = {False: 1, True: 2}   # the HBB and the SODA-A configs' MIL stages
 

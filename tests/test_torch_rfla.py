@@ -43,6 +43,7 @@ from point_teacher_torch.utils.jax_weights import load_jax_params, port_arrays
 from test_torch_fcos_baseline import (assert_updates_match, batch_arrays, one_thread,
                                       snapshot, torch_batch)
 from test_torch_inference import ULP2, match_dets
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 NUM_CLASSES, IMG, G, NUM_IMAGES = 4, 64, 6, 4
 _TRUNC_STD = 0.87962566103423978

@@ -14,6 +14,7 @@ from point_teacher_tpu.ops.roi_align import (extract_group_windows, roi_align_ga
 from point_teacher_tpu.ops.roi_align_pallas import roi_align_batched_pallas
 from point_teacher_torch.ops import _cuda_build
 from point_teacher_torch.ops import roi_align as ra
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 B, H, W, C = 2, 16, 20, 8
 TOL = 1e-5

@@ -17,6 +17,7 @@ from point_teacher_tpu.ops.roi_align import (extract_group_windows, roi_align_ro
 from point_teacher_tpu.ops.rroi_pallas import roi_align_rotated_pallas
 from point_teacher_torch.ops import roi_align as ra
 from point_teacher_torch.ops import roi_align_rotated as rr
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 B, H, W, C = 2, 40, 44, 8
 FWD_TOL, BWD_TOL = 1e-5, 1e-4

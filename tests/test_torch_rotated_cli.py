@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from test_torch_train_step import CLI_KEYS, run_cli_across_the_switch
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

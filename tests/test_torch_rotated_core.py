@@ -20,6 +20,7 @@ from point_teacher_torch.core import rpseudo as trp
 from point_teacher_torch.core import rtargets as trt
 from point_teacher_torch.core import targets as tt
 from point_teacher_torch.train import rdense_losses as trd
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 IMG, STRIDE, G, C, B = 64, 8, 6, 4, 2
 
@@ -84,19 +85,19 @@ def test_pseudo_targets_rotated_equal():
     _close(got[3], want[3])
 
 
-def _raug_batch(seed):
+def _raug_batch(seed, b=B):
     r = np.random.RandomState(seed)
-    img = r.randint(0, 255, (B, IMG, IMG, 3)).astype(np.float32)
-    rb = _rboxes(r, (B, G), lo=4, hi=IMG - 4, wh=(4, 20))
-    pts = (rb[..., :2] + r.uniform(-2, 2, (B, G, 2))).astype(np.float32)
-    return (img, pts, np.ones((B, G), bool), rb[..., :2].copy(), rb,
-            r.uniform(size=(B, G)) < 0.8)
+    img = r.randint(0, 255, (b, IMG, IMG, 3)).astype(np.float32)
+    rb = _rboxes(r, (b, G), lo=4, hi=IMG - 4, wh=(4, 20))
+    pts = (rb[..., :2] + r.uniform(-2, 2, (b, G, 2))).astype(np.float32)
+    return (img, pts, np.ones((b, G), bool), rb[..., :2].copy(), rb,
+            r.uniform(size=(b, G)) < 0.8)
 
 
-def _raug_draws(key):
+def _raug_draws(key, b=B):
     """The draws strong_augment_rotated makes from its key (raugment.py:155-164)."""
     dirs, us, angles = [], [], []
-    for k in jax.random.split(key, B):
+    for k in jax.random.split(key, b):
         k1, k2, k3 = jax.random.split(k, 3)
         dirs.append(int(jax.random.randint(k1, (), 0, 4)))
         us.append(float(jax.random.uniform(k2, (), minval=0.8, maxval=1.2)))
@@ -104,15 +105,11 @@ def _raug_draws(key):
     return dirs, us, angles
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_strong_augment_rotated_with_injected_draws(seed):
-    """Flip, rotation and rescale with the JAX draws. Coordinates, boxes and
-    validity must agree; pixels may differ where XLA's fused multiply-adds
-    move a nearest-neighbour or rounding tie (ROADMAP.md queue 3)."""
-    arrays = _raug_batch(20 + seed)
-    key = jax.random.PRNGKey(seed)
+def _check_strong_augment_rotated(arrays, key):
+    """The port's strong_augment_rotated with the draws JAX's makes from
+    `key` against JAX's; returns the flip directions drawn."""
     want = jra.strong_augment_rotated(key, jra.RAugBatch(*[jnp.asarray(x) for x in arrays]))
-    dirs, us, angles = _raug_draws(key)
+    dirs, us, angles = _raug_draws(key, arrays[0].shape[0])
     got = tra.strong_augment_rotated(tra.RAugBatch(*[_t(x) for x in arrays]), torch.tensor(dirs),
                                      torch.tensor(us, dtype=torch.float32),
                                      torch.tensor(angles, dtype=torch.float32))
@@ -121,6 +118,22 @@ def test_strong_augment_rotated_with_injected_draws(seed):
         _close(getattr(got, name), getattr(want, name), atol=1e-4)
     for name in ("gt_valid", "pseudo_valid"):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
+    return dirs
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_strong_augment_rotated_with_injected_draws(seed):
+    """Flip, rotation and rescale with the JAX draws. Coordinates, boxes and
+    validity must agree; pixels may differ where XLA's fused multiply-adds
+    move a nearest-neighbour or rounding tie (ROADMAP.md queue 3)."""
+    _check_strong_augment_rotated(_raug_batch(20 + seed), jax.random.PRNGKey(seed))
+
+
+def test_strong_augment_rotated_all_four_directions_in_one_batch():
+    """Four images that JAX's draws from PRNGKey(1) flip four ways: the port
+    selects each image's flip on the device (no branch on a host value)."""
+    dirs = _check_strong_augment_rotated(_raug_batch(40, b=4), jax.random.PRNGKey(1))
+    assert sorted(dirs) == [0, 1, 2, 3]
 
 
 @pytest.mark.parametrize("angle", [1.0, 7.0, 19.0])

@@ -47,6 +47,7 @@ from test_torch_inference import match_dets
 from test_torch_models import NUM_CLASSES
 from test_torch_rotated_infer import SODAA_TEST
 from test_torch_rotated_models import IMG, random_rotated_flax_params
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs/point_teacher/sodaa_point_teacher_1x.py")

@@ -37,6 +37,7 @@ from point_teacher_torch.ops.boxes import grid_points
 from point_teacher_torch.ops.nms import stable_topk
 from point_teacher_torch.train.config import InferenceCfg
 from test_torch_inference import ULP2, match_dets
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 NEAR = 1e-6        # IoU margin around the threshold where a keep decision may flip
 

@@ -20,6 +20,7 @@ from point_teacher_torch.utils.jax_weights import load_jax_params, port_arrays
 from test_torch_models import NUM_CLASSES
 from test_torch_rotated_models import random_rotated_flax_params
 from test_torch_rotated_train_step import B, EXT, FINE, G, NNEG, TOP_K, _neg_draws, _rboxes
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 ALPHA = (0.01, 0.25)
 BETA, DN = 0.25, 0.2

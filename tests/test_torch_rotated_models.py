@@ -17,6 +17,7 @@ from point_teacher_torch.models.resnet import ResNet
 from point_teacher_torch.models.rotated_detector import StudentRotatedFCOS
 from point_teacher_torch.utils.jax_weights import load_jax_params
 from test_torch_models import NUM_CLASSES
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 IMG = 64
 _TRUNC_STD = 0.87962566103423978

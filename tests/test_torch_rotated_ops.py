@@ -11,6 +11,7 @@ from point_teacher_tpu.ops import losses as jl
 from point_teacher_tpu.ops import rotated as jr
 from point_teacher_torch.ops import losses as tl
 from point_teacher_torch.ops import rotated as tr
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 RTOL, GTOL = 1e-5, 1e-4
 

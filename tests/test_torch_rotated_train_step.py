@@ -35,6 +35,7 @@ from test_torch_models import NUM_CLASSES
 from test_torch_rotated_models import random_rotated_flax_params
 from test_torch_synthetic import SMALL_SHAPE_LIST, replay_syn_draws
 from test_torch_train_step import PHASE1_IDS, FEAT_SCALE, assert_trees_and_updates_match
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 B, IMG, G, NNEG, NUM_IMAGES = 2, 64, 6, 8, 8
 FINE = dict(base_ratios=(1.0,), shake_ratio=None, min_scale=0.0, gen_num_neg=NNEG)

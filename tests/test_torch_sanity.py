@@ -31,6 +31,7 @@ from point_teacher_tpu.train.config import PointTeacherConfig as JaxPT
 from test_torch_fcos_baseline import one_thread
 from test_torch_synthetic import (B, SIZES, assert_masks_match, replay_syn_draws,
                                   syn_inputs)
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT_TOOL = os.path.join(REPO, "tools/sanity_train.py")

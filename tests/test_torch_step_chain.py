@@ -32,6 +32,7 @@ from point_teacher_torch.utils.jax_weights import load_jax_params
 from test_torch_fcos_baseline import one_thread
 from test_torch_models import NUM_CLASSES, random_flax_params
 from test_torch_sanity import _jax_config
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 IMG, G, N_BATCHES, STEPS = 64, 4, 4, 6
 KEYS = ("total_loss", "loss_cls", "loss_bbox", "loss_centerness", "stage0_loss_mil_bags",

@@ -24,6 +24,7 @@ from point_teacher_torch.core import synthetic as ts
 from point_teacher_torch.ops.masks import rasterize_rboxes
 from point_teacher_torch.ops.nms import nms_rotated
 from point_teacher_torch.train import config as tconfig
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 B = 2
 EDGE_PX = 1e-4
@@ -79,15 +80,21 @@ def syn_inputs(size: str, seed: int):
 def edge_pixels(rboxes, keep, h, w, margin=EDGE_PX):
     """Pixels within `margin` px of a kept box's edge (float64): set in the
     mask of the boxes grown by `margin`, not in that of the boxes shrunk by it."""
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
     inner = np.zeros((h, w), bool)
     outer = np.zeros((h, w), bool)
     for cx, cy, bw, bh, a in np.asarray(rboxes, np.float64)[np.asarray(keep)]:
+        # only the pixels within the box's circumscribed square can be set
+        r = np.hypot(bw, bh) / 2 + margin + 1
+        y0, y1 = max(int(cy - r), 0), min(int(cy + r) + 1, h)
+        x0, x1 = max(int(cx - r), 0), min(int(cx + r) + 1, w)
+        if y0 >= y1 or x0 >= x1:
+            continue
+        ys, xs = np.mgrid[y0:y1, x0:x1].astype(np.float64)
         c, s = np.cos(a), np.sin(a)
         dx, dy = xs - cx, ys - cy
         lx, ly = np.abs(c * dx + s * dy), np.abs(-s * dx + c * dy)
-        inner |= (lx <= bw / 2 - margin) & (ly <= bh / 2 - margin)
-        outer |= (lx <= bw / 2 + margin) & (ly <= bh / 2 + margin)
+        inner[y0:y1, x0:x1] |= (lx <= bw / 2 - margin) & (ly <= bh / 2 - margin)
+        outer[y0:y1, x0:x1] |= (lx <= bw / 2 + margin) & (ly <= bh / 2 + margin)
     return outer & ~inner
 
 

@@ -20,6 +20,7 @@ from point_teacher_tpu.evalx.rgeometry import obb2poly_np
 from point_teacher_tpu.utils import logging as jlogging
 from point_teacher_torch import data as pdata
 from point_teacher_torch.utils import logging as plogging
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 AITOD_CLASSES = ("airplane", "bridge", "storage-tank", "ship", "swimming-pool", "vehicle",
                  "person", "wind-mill")

@@ -4,7 +4,12 @@ the JAX build_train_step, from the same params, batches and random draws
 - phase 2: one step, then two chained steps;
 - phase 1: one step with the gate open, then a chain across the phase
   switch (that phase-1 step, then a phase-2 step), and one step with the
-  gate closed (an image without a valid GT keeps no synthetic box).
+  gate closed (an image without a valid GT keeps no synthetic box);
+- the port's superstep, build_train_step_scan, fed the same draws: K=2
+  against two chained phase-2 steps and K=2 against two chained phase-1
+  steps of JAX (a third chained phase-1 step parts from JAX by ~3e-3 in
+  the port's single steps too, where the bag loss saturates: ROADMAP.md
+  queue 3).
 Every metric key, the updated student and teacher params, the point caches
 and the gate are compared; the JAX step is built once, and compiles once
 per phase. Also runs the port's training CLI on the CPU across the switch."""
@@ -30,11 +35,12 @@ from point_teacher_torch.core.proposals import FineProposalCfg as TFineProposalC
 from point_teacher_torch.models.detector import StudentFCOS
 from point_teacher_torch.train import config as tconfig
 from point_teacher_torch.train.state import Batch, create_train_state
-from point_teacher_torch.train.steps import Draws, build_train_step
+from point_teacher_torch.train.steps import Draws, build_train_step, build_train_step_scan
 from point_teacher_torch.utils.jax_weights import load_jax_params
 from point_teacher_torch.train.steps import synthesize
 from test_torch_models import NUM_CLASSES, random_flax_params
 from test_torch_synthetic import SMALL_SHAPE_LIST, replay_syn_draws
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 B, IMG, G, NNEG, NUM_IMAGES = 2, 64, 6, 8, 8
 FEAT_SCALE = np.float32(1e-2)
@@ -177,10 +183,17 @@ def chains():
         agg["bias"] = agg["bias"] * FEAT_SCALE
         tx = make_optimizer(params, jcfg.optim)
         jstep = jax_build_step(jmodel, tx, jcfg)
-        run = lambda plan: _run_chain(jcfg, tcfg, params, tx, jstep, plan)
-        return dict(phase2=run([(False, _batch(0)), (False, _batch(1))]),
-                    phase1=run([(True, _batch(0)), (False, _batch(1))]),
-                    gate_closed=run([(True, _batch(2, empty_image=1))]))
+        # the port's start as a JAX tree, one for every chain (the same params)
+        tstart = load_torch_detector_into(params, _snapshot(_port_state(tcfg, params).student))
+        run = lambda plan, **kw: _run_chain(jcfg, tcfg, params, tx, jstep, plan, tstart, **kw)
+        out = dict(phase2=run([(False, _batch(0)), (False, _batch(1))]),
+                   phase1=run([(True, _batch(0)), (False, _batch(1))]),
+                   gate_closed=run([(True, _batch(2, empty_image=1))]),
+                   phase1_two=run([(True, _batch(0)), (True, _batch(1))], port=False))
+        out["scans"] = {name: _run_scan(tcfg, params, out[chain])
+                        for name, chain in SCANS.items()}
+        del out["phase1_two"]  # its last trees live on in its scan's result
+        return out
     finally:
         torch.set_num_threads(threads)
 
@@ -196,19 +209,31 @@ def phase1_runs(chains):
     return chains["phase1"] + chains["gate_closed"]
 
 
-def _run_chain(jcfg, tcfg, params, tx, jstep, plan):
-    """Steps (phase1, batch) of both packages from `params`, the teacher a
-    copy of the student; per step the metrics, the trees after it and before
-    it, the point caches and each package's phase-1 gate."""
-    jstate = jax_create_state(params, tx, num_images=NUM_IMAGES, max_gt=G, rng=_steady_rng())
+def _port_state(tcfg, params):
     port = StudentFCOS(num_classes=NUM_CLASSES, frozen_stages=tcfg.optim.frozen_stages,
                        dtype=torch.float32)
     load_jax_params(port, params)
-    tstate = create_train_state(port, tcfg.optim, NUM_IMAGES, G)
+    return create_train_state(port, tcfg.optim, NUM_IMAGES, G)
+
+
+def _port_trees(params, tstate):
+    return dict(tparams=load_torch_detector_into(params, _snapshot(tstate.student)),
+                tteacher=load_torch_detector_into(params, _snapshot(tstate.teacher)),
+                tcache=[x.numpy().copy() for x in (tstate.origin_points, tstate.refined_points,
+                                                   tstate.points_cached)])
+
+
+def _run_chain(jcfg, tcfg, params, tx, jstep, plan, tstart, port=True):
+    """Steps (phase1, batch) of both packages (of JAX alone without `port`)
+    from `params` (`tstart`: the port's start as a JAX tree), the teacher a
+    copy of the student; per step the batch, the draws, the metrics, the
+    trees after it and before it, the point caches and each package's
+    phase-1 gate."""
+    jstate = jax_create_state(params, tx, num_images=NUM_IMAGES, max_gt=G, rng=_steady_rng())
+    tstate = _port_state(tcfg, params) if port else None
     tstep = build_train_step(tcfg)
 
     start = jax.tree_util.tree_map(np.asarray, params)
-    tstart = load_torch_detector_into(params, _snapshot(tstate.student))
     before = dict(jparams=start, jteacher=start, tparams=tstart, tteacher=tstart)
     out = []
     for phase1, b in plan:
@@ -216,23 +241,44 @@ def _run_chain(jcfg, tcfg, params, tx, jstep, plan):
         fresh = not np.asarray(jstate.points_cached)[b["image_ids"]].any()
         jstate, jm = jstep(jstate, JaxBatch(**{k: jnp.asarray(v) for k, v in b.items()}),
                            phase1=phase1)
-        tm = tstep(tstate, _torch_batch(b), phase1=phase1, draws=draws)
-        gates = _gates(jstate, b, tcfg, draws, fresh) if phase1 else None
-        out.append(dict(
+        r = dict(
+            batch=b, phase1=phase1, draws=draws,
             jm={k: float(v) for k, v in jm.items()},
-            tm={k: float(v) for k, v in tm.items()},
             jparams=jax.tree_util.tree_map(np.asarray, jstate.params),
             jteacher=jax.tree_util.tree_map(np.asarray, jstate.teacher_params),
-            tparams=load_torch_detector_into(params, _snapshot(tstate.student)),
-            tteacher=load_torch_detector_into(params, _snapshot(tstate.teacher)),
             jcache=[np.asarray(x) for x in (jstate.origin_points, jstate.refined_points,
                                             jstate.points_cached)],
-            tcache=[x.numpy().copy() for x in (tstate.origin_points, tstate.refined_points,
-                                               tstate.points_cached)],
-            before=before, gates=gates,
-        ))
-        before = {k: out[-1][k] for k in before}
+            before=before)
+        if port:
+            tm = tstep(tstate, _torch_batch(b), phase1=phase1, draws=draws)
+            r.update(tm={k: float(v) for k, v in tm.items()},
+                     gates=_gates(jstate, b, tcfg, draws, fresh) if phase1 else None,
+                     **_port_trees(params, tstate))
+        out.append(r)
+        before = {k: r.get(k) for k in before}
     return out
+
+
+# the port's supersteps: (name, JAX chain of the chains fixture they replay)
+SCANS = {"phase2_k2": "phase2", "phase1_k2": "phase1_two"}
+
+
+def _run_scan(tcfg, params, chain):
+    """build_train_step_scan over the batches and draws of a JAX chain of
+    one phase, from `params`: the metrics of each step [K] and the trees
+    after the K steps, with the chain's start as `before`."""
+    tstate = _port_state(tcfg, params)
+    before = chain[0]["before"]
+    phase1 = chain[0]["phase1"]
+    assert all(r["phase1"] == phase1 for r in chain)
+    ms = build_train_step_scan(tcfg)(tstate, [_torch_batch(r["batch"]) for r in chain],
+                                     phase1=phase1, draws=[r["draws"] for r in chain])
+    assert all(v.shape == (len(chain),) for v in ms.values())
+    last = chain[-1]
+    return dict(tm=[{k: float(v[i]) for k, v in ms.items()} for i in range(len(chain))],
+                jm=[r["jm"] for r in chain], jparams=last["jparams"],
+                jteacher=last["jteacher"], jcache=last["jcache"], before=before,
+                **_port_trees(params, tstate))
 
 
 def _gates(jstate, b, tcfg, draws, fresh):
@@ -297,6 +343,29 @@ def test_phase1_gate_matches_jax(phase1_runs, step, want):
         ids = np.arange(B) + 4  # _batch(2)'s image ids
         np.testing.assert_array_equal(r["tcache"][1][ids], 0.0)
         assert r["tcache"][2][ids].all()
+
+
+@pytest.mark.parametrize("scan", list(SCANS))
+def test_scan_metrics_match_jax(chains, scan):
+    """Every step's metrics of the superstep, stacked [K], against the JAX
+    chain's steps."""
+    r = chains["scans"][scan]
+    for tm, jm in zip(r["tm"], r["jm"]):
+        assert set(tm) == set(jm)
+        for k in jm:
+            np.testing.assert_allclose(tm[k], jm[k], rtol=1e-3, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("scan", list(SCANS))
+@pytest.mark.parametrize("which", ["params", "teacher"])
+def test_scan_updated_params_match_jax(chains, scan, which):
+    """The student and the teacher after the K steps of the superstep."""
+    assert_trees_and_updates_match(chains["scans"][scan], which)
+
+
+@pytest.mark.parametrize("scan", list(SCANS))
+def test_scan_point_caches_match_jax(chains, scan):
+    test_point_caches_match_jax([chains["scans"][scan]], 0)
 
 
 def run_cli_across_the_switch(config):

@@ -25,6 +25,7 @@ from point_teacher_tpu.utils import visualize as jvis
 from test_torch_eval import coco_dir  # noqa: F401  (fixture)
 from test_torch_fcos_baseline import one_thread
 from test_torch_rotated_eval import sodaa_dir  # noqa: F401  (fixture)
+from torch_port_env import port_test_module  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HBB = os.path.join(REPO, "configs/point_teacher/aitodv2_point_teacher_0.py")
